@@ -11,7 +11,9 @@ script exits nonzero:
   3. kernels against their plain torch versions on the card, at main-path
      shapes: K1 (slab gather) at B=4096, K=4096, chunk 256 and 128, with
      0, 1, 2 and 5 float channels, on the 2^21-particle payload; K2 (serial
-     f32 row cumsum) at (16384, 4096). Equality is exact (tolerance 0).
+     f32 row cumsum) at (16384, 4096), the solve scan's shape, and at
+     (16384, 16), the survey classify prefix's. Equality is exact
+     (tolerance 0).
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
@@ -24,8 +26,33 @@ script exits nonzero:
      a few halos are also checked against tests/reference_oracle.py.
   6. CLI: python -m so_tpu_torch on a tipsy snapshot + .gtp of the 2^18
      box with -grp -gtp -all; every output file must exist and hold groups.
+  7. -pot: run_so(b_pot=True) on the three-species standard box, phi from
+     np.random.default_rng(SEED); one cold and POT_WARM_RUNS warm runs,
+     with the recenter phase's seconds. On the 2^18 box the CUDA and CPU
+     runs must give identical centers and fields.
+  8. --deltas: run_so_multi on the three-species standard box at Delta
+     200, 340, 667 (R_200m, R_vir at z=0 for Omega_m=0.3, R_200c, in mean
+     density units), against an independent run_so per threshold on one
+     prebuilt grid: codes, Mvir, Rvir, j, members and igrp bit-identical;
+     the multi solve's seconds beside the sum of the single solves.
+  9. --survey: solve_rvir on bench.py's dense box (2^23 particles, 65,536
+     halos), uniform and three-species masses, with the pre-pass forced,
+     auto-gated and off: identical results, and the forced pass must
+     resolve halos; solve seconds and the halos the classifier resolved.
+     Then the classifier itself, card against CPU: the packed -1/-2
+     verdicts of every 16th dense-box halo at its first ladder radius
+     (4,096 halos, four thresholds), bit for bit, for both mass kinds;
+     at least one -2 verdict must be among them.
+ 10. the CLI's new paths, in process on a tipsy file of the 2^18 box with
+     three-species masses and phi: -pot, --deltas 200,340,667, a
+     --checkpoint run done twice (the second resumes and writes the same
+     bytes but for the headers' run time), and --profile (a
+     torch.profiler Chrome trace).
 
-The line before the last is a JSON object with one entry per kernel; the
+Phases 4 and 7-10 each zero both kernels' launch counters before they
+start and fail unless both grew (9's card-against-CPU check runs after
+its count is read). The line before the last is a JSON
+object with one entry per kernel (launches summed over those phases); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -40,6 +67,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 THR = 178.0
 SEED = 12345
 WARM_RUNS = 5      # timed runs of each standard box after its cold run
+POT_WARM_RUNS = 3  # timed -pot runs after its cold run
+DELTAS = (200.0, 340.0, 667.0)
+MULTI_ROUNDS = 3   # timed multi-vs-singles rounds after the cold multi run
+SURVEY_ROUNDS = 3  # timed rounds of the three survey modes after a warm-up
+LAUNCHES = {"K1": 0, "K2": 0}   # kernel launches summed over the paths
 
 
 def log(msg):
@@ -188,6 +220,16 @@ def phase_kernels(box):
         f"plain {plain_ms:.4f} ms")
     k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
               shape="B=16384 K=4096")
+    # the survey classify prefix: K2 over (B, 16) nearest-hit masses
+    x = torch.rand((16384, 16), generator=torch.Generator(device=dev)
+                   .manual_seed(SEED + 1), device=dev)
+    got = seqsum.seq_cumsum(x)
+    want = seqsum.seq_cumsum_plain(x)
+    torch.cuda.synchronize()
+    assert_same_bits("K2 (16384, 16)", got, want)
+    log(f"[K2] (16384, 16): exact, max_abs_err {max_abs_err(got, want)} "
+        f"kernel {cuda_ms(lambda: seqsum.seq_cumsum(x), 20):.4f} ms plain "
+        f"{cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 3):.4f} ms")
     del grid, x, got, want
     torch.cuda.empty_cache()
     return k1, k2
@@ -214,8 +256,9 @@ def particles_and_catalog(box, species, seed):
         split = (0, n, 0)
     hdr = TipsyHeader(time=1.0, nbodies=n, ndim=3, nsph=split[0],
                       ndark=split[1], nstar=split[2])
-    ps = ParticleSet(hdr, pos, vel, mass, np.zeros(n, np.float32),
-                     np.zeros(n, np.float32))
+    phi = np.random.default_rng(SEED).uniform(-3.0, -0.1, n).astype(
+        np.float32)                           # read only by -pot
+    ps = ParticleSet(hdr, pos, vel, mass, phi, np.zeros(n, np.float32))
     G = centers.shape[0]
 
     def catalog():
@@ -225,13 +268,31 @@ def particles_and_catalog(box, species, seed):
     return ps, catalog
 
 
-def run(ps, catalog, species, device):
+def run(ps, catalog, species, device, grid=None, **kw):
     from so_tpu_torch.engine.pipeline import SOParams, run_so
 
+    kw = dict(dict(threshold=THR, species=species, device=device), **kw)
     t0 = time.perf_counter()
-    out = run_so(ps, catalog(), SOParams(threshold=THR, species=species,
-                                         device=device))
+    out = run_so(ps, catalog(), SOParams(**kw), grid=grid)
     return out, time.perf_counter() - t0
+
+
+def counted(tag, fn, *a):
+    """Run one path with both kernels' launch counters zeroed just before;
+    fail unless both grew; add them to LAUNCHES."""
+    from so_tpu_torch.ops import seqsum, slab_gather
+
+    slab_gather.launches = 0
+    seqsum.launches = 0
+    out = fn(*a)
+    counts = dict(K1=slab_gather.launches, K2=seqsum.launches)
+    log(f"[{tag}] launches: {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"{tag}: a kernel of the path never ran: "
+                             f"{counts}")
+    for k, v in counts.items():
+        LAUNCHES[k] += v
+    return out
 
 
 def check_run(tag, out, n_halos):
@@ -295,6 +356,31 @@ def phase_main_path(box):
     return counts
 
 
+def assert_runs_equal(tag, g, c, sp):
+    """Every field of two SORuns bit for bit; returns the compared pairs."""
+    import numpy as np
+
+    pairs = [(f"solve.{f}", getattr(g.solve, f), getattr(c.solve, f))
+             for f in ("code", "mvir", "rvir", "j", "d2cut", "vcm")]
+    pairs += [(f"conflicts.{f}", getattr(g.conflicts, f),
+               getattr(c.conflicts, f))
+              for f in ("igrp", "n_subsumed", "n_ignored", "mvir", "rvir")]
+    pairs += [(f"derived.{f}", getattr(g.derived, f), getattr(c.derived, f))
+              for f in ("vcirc", "rmass", "rmax", "vmax")]
+    pairs += [(f"profile {s}", g.derived.profiles[s],
+               c.derived.profiles[s]) for s in sp]
+    pairs += [("catalog.pos", np.asarray(g.catalog.pos, np.float32),
+               np.asarray(c.catalog.pos, np.float32))]
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{tag}: {name} differs")
+    for h, (ma, mb) in enumerate(zip(g.members, c.members)):
+        if (ma is None) != (mb is None) or (
+                ma is not None and not np.array_equal(ma, mb)):
+            raise AssertionError(f"{tag}: members of halo {h} differ")
+    return pairs
+
+
 def phase_gpu_vs_cpu(small):
     import numpy as np
 
@@ -307,24 +393,7 @@ def phase_gpu_vs_cpu(small):
         ps, catalog = particles_and_catalog(small, sp, SEED + 7)
         g, tg = run(ps, catalog, sp, "cuda")
         c, tc = run(ps, catalog, sp, "cpu")
-        pairs = [(f"solve.{f}", getattr(g.solve, f), getattr(c.solve, f))
-                 for f in ("code", "mvir", "rvir", "j", "d2cut", "vcm")]
-        pairs += [(f"conflicts.{f}", getattr(g.conflicts, f),
-                   getattr(c.conflicts, f))
-                  for f in ("igrp", "n_subsumed", "n_ignored", "mvir",
-                            "rvir")]
-        pairs += [(f"derived.{f}", getattr(g.derived, f),
-                   getattr(c.derived, f))
-                  for f in ("vcirc", "rmass", "rmax", "vmax")]
-        pairs += [(f"profile {s}", g.derived.profiles[s],
-                   c.derived.profiles[s]) for s in sp]
-        for name, a, b in pairs:
-            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
-                raise AssertionError(f"{tag}: {name} differs GPU vs CPU")
-        for h, (ma, mb) in enumerate(zip(g.members, c.members)):
-            if (ma is None) != (mb is None) or (
-                    ma is not None and not np.array_equal(ma, mb)):
-                raise AssertionError(f"{tag}: members of halo {h} differ")
+        pairs = assert_runs_equal(tag, g, c, sp)
         # a few halos against the brute-force oracle (tests/)
         picks = np.nonzero(g.solve.code == 0)[0][:4].tolist() + \
             np.nonzero(g.solve.code != 0)[0][:2].tolist()
@@ -396,6 +465,290 @@ def phase_cli(small):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def phase_pot(box, small):
+    """-pot on the standard box (cold + warm runs), then CUDA vs CPU."""
+    from so_tpu.io.tipsy import DARK, GAS, STAR
+
+    sp = (DARK, GAS, STAR)
+    ps, catalog = particles_and_catalog(box, sp, SEED)
+    warm = []
+    for rep in ["cold"] + [f"warm {i + 1}" for i in range(POT_WARM_RUNS)]:
+        out, e2e = run(ps, catalog, sp, "cuda", b_pot=True)
+        codes = check_run(f"pot {rep}", out, out.catalog.n)
+        moved = int((out.catalog.pos != catalog().pos).any(axis=1).sum())
+        if moved == 0:
+            raise AssertionError("-pot moved no center")
+        rec = out.phases["recenter (-pot)"]
+        log(f"[pot {rep}] halos={out.catalog.n} centers moved={moved} "
+            f"ok/-1/-2/-3={codes} recenter {rec:.4f} s solve "
+            f"{out.phases['R_Delta solve']:.4f} s e2e {e2e:.4f} s")
+        if rep != "cold":
+            warm.append((rec, e2e))
+    log(f"[pot median of {len(warm)} warm] recenter "
+        f"{statistics.median(w[0] for w in warm):.4f} s (range "
+        f"{min(w[0] for w in warm):.4f}-{max(w[0] for w in warm):.4f}) e2e "
+        f"{statistics.median(w[1] for w in warm):.4f} s")
+
+    ps, catalog = particles_and_catalog(small, sp, SEED + 7)
+    g, tg = run(ps, catalog, sp, "cuda", b_pot=True)
+    c, tc = run(ps, catalog, sp, "cpu", b_pot=True)
+    pairs = assert_runs_equal("pot gpu-vs-cpu", g, c, sp)
+    log(f"[pot gpu-vs-cpu] particles={ps.n} halos={g.catalog.n}: "
+        f"{len(pairs)} fields (centers included) and all member lists "
+        f"bit-identical; cuda {tg:.3f} s, cpu {tc:.3f} s")
+
+
+def phase_multi(box):
+    """run_so_multi at DELTAS against run_so per threshold, one grid."""
+    import numpy as np
+
+    from so_tpu.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so_multi
+    from so_tpu_torch.ops.grid import build_grid
+
+    sp = (DARK, GAS, STAR)
+    ps, catalog = particles_and_catalog(box, sp, SEED)
+    grid = build_grid(ps.pos, ps.mass, vel=ps.vel, ptype=ps.ptype_all(),
+                      mark=ps.mark, device="cuda")
+    params = SOParams(species=sp, device="cuda")
+
+    def multi():
+        t0 = time.perf_counter()
+        runs = run_so_multi(ps, catalog(), params, DELTAS, grid=grid)
+        return runs, time.perf_counter() - t0
+
+    runs, e2e = multi()
+    log(f"[multi cold] T={len(DELTAS)} solve (multi) "
+        f"{runs[0].phases['R_Delta solve (multi)']:.4f} s e2e {e2e:.4f} s")
+    rounds = []
+    for rep in range(MULTI_ROUNDS):       # multi, then the singles, in turns
+        runs, e2e_multi = multi()
+        t_single, e2e_single = [], []
+        for thr, m in zip(DELTAS, runs):
+            s, e2e = run(ps, catalog, sp, "cuda", grid=grid, threshold=thr)
+            t_single.append(s.phases["R_Delta solve"])
+            e2e_single.append(e2e)
+            if rep:
+                continue
+            for f in ("code", "mvir", "rvir", "j"):
+                if getattr(m.solve, f).tobytes() != \
+                        getattr(s.solve, f).tobytes():
+                    raise AssertionError(f"multi Delta={thr}: solve.{f} "
+                                         "differs from run_so")
+            if m.conflicts.igrp.tobytes() != s.conflicts.igrp.tobytes():
+                raise AssertionError(f"multi Delta={thr}: igrp differs")
+            for h, (a, b) in enumerate(zip(m.members, s.members)):
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    raise AssertionError(f"multi Delta={thr}: members of "
+                                         f"halo {h} differ")
+            log(f"[multi Delta={thr:g}] ok/-1/-2/-3="
+                f"{check_run('multi', m, m.catalog.n)} equal to run_so "
+                "(code, Mvir, Rvir, j, members, igrp)")
+        rounds.append((runs[0].phases["R_Delta solve (multi)"],
+                       sum(t_single), e2e_multi, sum(e2e_single)))
+        log(f"[multi round {rep + 1}] solve (multi) {rounds[-1][0]:.4f} s, "
+            f"single solves {' + '.join(f'{t:.4f}' for t in t_single)} = "
+            f"{rounds[-1][1]:.4f} s; e2e multi {e2e_multi:.4f} s, singles "
+            f"{rounds[-1][3]:.4f} s")
+    med = [statistics.median(r[i] for r in rounds) for i in range(4)]
+    log(f"[multi median of {MULTI_ROUNDS}] T={len(DELTAS)} solve (multi) "
+        f"{med[0]:.4f} s vs sum of single solves {med[1]:.4f} s (ratio "
+        f"{med[0] / med[1]:.3f}); e2e multi {med[2]:.4f} s vs singles "
+        f"{med[3]:.4f} s")
+
+
+def make_dense_box():
+    """bench.py's dense box, with three-species masses beside its own."""
+    import numpy as np
+
+    from bench import make_box
+
+    t0 = time.perf_counter()
+    pos, mass, _, centers, rgtp = make_box(np.random.default_rng(SEED),
+                                           1 << 23, 65536)
+    log(f"[box] dense: {pos.shape[0]} particles, {centers.shape[0]} halos, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    species_mass = (np.random.default_rng(SEED + 1).uniform(
+        0.5, 1.5, pos.shape[0]) / pos.shape[0]).astype(np.float32)
+    return pos, (("uniform", mass), ("species", species_mass)), centers, rgtp
+
+
+def phase_survey(dense):
+    """solve_rvir on the dense box with the pre-pass forced, auto, off."""
+    import numpy as np
+
+    from so_tpu_torch.engine.solver import solve_rvir
+    from so_tpu_torch.ops.grid import build_grid
+
+    pos, masses, centers, rgtp = dense
+    for tag, m in masses:
+        grid = build_grid(pos, m, device="cuda")
+        res, times = {}, {}
+        for rep in range(1 + SURVEY_ROUNDS):    # a warm-up round first
+            for mode, sv in (("off", False), ("forced", True),
+                             ("auto", None)):
+                t0 = time.perf_counter()
+                res[mode] = solve_rvir(grid, centers, rgtp, THR, survey=sv)
+                if rep:
+                    times.setdefault(mode, []).append(
+                        time.perf_counter() - t0)
+        off = res["off"]
+        for mode, r in res.items():
+            for f in ("code", "mvir", "rvir", "j", "d2cut"):
+                if getattr(r, f).tobytes() != getattr(off, f).tobytes():
+                    raise AssertionError(f"survey {tag} {mode}: {f} differs "
+                                         "from the solve without the pass")
+            dt = statistics.median(times[mode])
+            log(f"[survey {tag} {mode}] solve median {dt:.4f} s (range "
+                f"{min(times[mode]):.4f}-{max(times[mode]):.4f}; "
+                f"{centers.shape[0] / dt:.0f} solves/s), classifier "
+                f"resolved {r.n_survey} halos")
+        if res["forced"].n_survey == 0:
+            raise AssertionError(f"survey {tag}: the forced pass resolved "
+                                 "no halo")
+        code = off.code
+        log(f"[survey {tag}] ok/-1/-2/-3="
+            f"{np.bincount(-code[code <= 0], minlength=4).tolist()}; "
+            "forced, auto and off identical")
+        del grid
+
+
+def phase_survey_vs_cpu(dense):
+    """The survey classifier (_classify_stage: unsorted K1, then counts or
+    the topk prefix and K2) on the card against the CPU, bit for bit."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine import solver
+    from so_tpu_torch.ops.grid import build_grid
+
+    pos, masses, centers, rgtp = dense
+    sel = np.arange(0, centers.shape[0], 16)
+    radii = solver.ladder_radius(rgtp[sel], np.ones(sel.size, np.int32))
+    thresholds = np.float32((THR,) + DELTAS)
+    for tag, m in masses:
+        packed = {}
+        for dev in ("cuda", "cpu"):
+            grid = build_grid(pos, m, device=dev)
+            level, S = solver._pick_level_span(grid, float(radii.max()))
+            K = int(min(4096, solver._k_limit(grid)))
+            packed[dev] = solver._classify_stage(
+                grid, level, K, S, 8,
+                torch.as_tensor(centers[sel], device=dev),
+                torch.as_tensor(radii, device=dev), thresholds)
+            del grid
+        if packed["cuda"].tobytes() != packed["cpu"].tobytes():
+            raise AssertionError(f"survey classify {tag}: card and CPU "
+                                 "verdicts differ")
+        m2 = [int(((packed["cuda"][:, 1] >> t) & 1).sum())
+              for t in range(thresholds.size)]
+        if sum(m2) == 0:
+            raise AssertionError(f"survey classify {tag}: no -2 verdict "
+                                 "to compare")
+        log(f"[survey classify {tag}] {sel.size} halos, K={K}: packed "
+            f"verdicts bit-identical on cuda and cpu; -2 calls per Delta "
+            f"{dict(zip((f'{t:g}' for t in thresholds), m2))}")
+
+
+def phase_cli_paths(small):
+    """The CLI's new options, in process, on the 2^18 box with general
+    masses and phi."""
+    import numpy as np
+
+    from so_tpu.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
+                                 TipsyHeader, write_tipsy)
+    from so_tpu_torch.cli import main as cli_main
+    from so_tpu_torch.profiling import TRACE_FILE
+
+    pos, mass, vel, centers, rgtp = small
+    out = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_paths")
+    os.makedirs(out, exist_ok=True)
+    n = pos.shape[0]
+    rng = np.random.default_rng(SEED + 3)
+    mass = (rng.uniform(0.5, 1.5, n) / n).astype(np.float32)
+    phi = rng.uniform(-3.0, -0.1, n).astype(np.float32)
+    ngas, nstar = n // 5, n // 7
+    ndark = n - ngas - nstar
+    recs = []
+    for dt, sl in ((GAS_DTYPE, slice(0, ngas)),
+                   (DARK_DTYPE, slice(ngas, ngas + ndark)),
+                   (STAR_DTYPE, slice(ngas + ndark, n))):
+        r = np.zeros(sl.stop - sl.start, dtype=dt[False])
+        r["mass"], r["pos"], r["vel"] = mass[sl], pos[sl], vel[sl]
+        r["phi"] = phi[sl]
+        recs.append(r)
+    write_tipsy(f"{out}/snap.bin", TipsyHeader(time=1.0, nbodies=n, ndim=3,
+                                               nsph=ngas, ndark=ndark,
+                                               nstar=nstar), *recs, False)
+    G = centers.shape[0]
+    gtp = np.zeros(G, dtype=STAR_DTYPE[False])
+    gtp["mass"] = rng.uniform(0.001, 1.0, G)
+    gtp["pos"], gtp["eps"] = centers, rgtp
+    gtp["tform"] = np.arange(1, G + 1)
+    write_tipsy(f"{out}/cat.gtp", TipsyHeader(time=1.0, nbodies=G, ndim=3,
+                                              nsph=0, ndark=0, nstar=G),
+                None, None, gtp, False)
+    base = ["-i", f"{out}/cat.gtp", "--tipsy", f"{out}/snap.bin", "-grp",
+            "-gtp", "-all", "--device", "cuda"]
+
+    def cli(tag, *args):
+        t0 = time.perf_counter()
+        if cli_main(base + list(args)) != 0:
+            raise RuntimeError(f"CLI {tag} failed")
+        log(f"[cli {tag}] {time.perf_counter() - t0:.2f} s")
+
+    def found(path):
+        rows = [ln.split() for ln in open(path)
+                if ln.strip() and not ln.startswith("#")]
+        k = sum(1 for t in rows if float(t[1]) > 0)
+        if len(rows) != G or k == 0:
+            raise AssertionError(f"{path}: {k} groups found of {len(rows)}")
+        return k
+
+    def body(path):
+        with open(path, "rb") as fp:
+            return fp.read()
+
+    cli("-pot", "-o", f"{out}/pot", "-pot")
+    log(f"[cli -pot] {found(f'{out}/pot.sovcirc')} of {G} groups found")
+    cli("--deltas", "-o", f"{out}/multi", "--deltas",
+        ",".join(f"{d:g}" for d in DELTAS))
+    for d in DELTAS:
+        log(f"[cli --deltas] Delta={d:g}: "
+            f"{found(f'{out}/multi.d{d:g}.sovcirc')} groups found")
+    ck = f"{out}/state.npz"
+    if os.path.exists(ck):
+        os.remove(ck)
+    cli("--checkpoint save", "-o", f"{out}/ck1", "--checkpoint", ck)
+    cli("--checkpoint resume", "-o", f"{out}/ck2", "--checkpoint", ck)
+    for ext in ("sogrp", "sogtp"):
+        if body(f"{out}/ck1.{ext}") != body(f"{out}/ck2.{ext}"):
+            raise AssertionError(f"resumed .{ext} differs")
+    # catalog and profile files differ only in their headers' run time
+    for ext in ("sovcirc", "sogas", "sodark", "sostar"):
+        rows = [[ln for ln in open(f"{out}/ck{i}.{ext}")
+                 if not ln.startswith("#")] for i in (1, 2)]
+        if rows[0] != rows[1] or not rows[0]:
+            raise AssertionError(f"resumed .{ext} rows differ")
+    log(f"[cli --checkpoint] the resumed run's outputs are byte-identical "
+        f"but for the headers' run time ({found(f'{out}/ck2.sovcirc')} "
+        "groups)")
+    trace = f"{out}/trace"
+    cli("--profile", "-o", f"{out}/prof", "--profile", trace)
+    with open(os.path.join(trace, TRACE_FILE)) as fp:
+        events = json.load(fp)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ours = sorted({e["name"] for e in kern if "_kernel" in e["name"]
+                   and ("slab_gather" in e["name"] or "seqsum" in e["name"])})
+    log(f"[cli --profile] {os.path.getsize(os.path.join(trace, TRACE_FILE))}"
+        f" bytes, {len(events)} events, {len(kern)} device kernel events, "
+        f"{sum(e.get('dur', 0) for e in kern) / 1e3:.3f} ms of kernel time; "
+        f"K1/K2 seen: {ours}")
+    if not events:
+        raise AssertionError("--profile wrote an empty trace")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "so_tpu_torch")):
         sys.stderr.write("chip_smoke.py: run it from the root of a checkout "
@@ -424,12 +777,21 @@ def main():
     box = timed("standard box", make_standard_box)
     k1, k2 = timed("kernels", phase_kernels, box)
     counts = timed("main path", phase_main_path, box)
-    del box
+    for k, v in counts.items():
+        LAUNCHES[k] += v
     from bench import make_box
 
     small = make_box(np.random.default_rng(SEED), 1 << 18, 2048)
     timed("gpu vs cpu", phase_gpu_vs_cpu, small)
     timed("cli", phase_cli, small)
+    timed("-pot", counted, "-pot", phase_pot, box, small)
+    timed("--deltas", counted, "--deltas", phase_multi, box)
+    del box
+    dense = timed("dense box", make_dense_box)
+    timed("--survey", counted, "--survey", phase_survey, dense)
+    timed("survey classify vs cpu", phase_survey_vs_cpu, dense)
+    del dense
+    timed("cli paths", counted, "cli paths", phase_cli_paths, small)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -437,11 +799,11 @@ def main():
         dict(name="slab_gather", route="cuda",
              source="so_tpu_torch/csrc/slab_gather.cu",
              replaces="so_tpu/ops/pallas_gather.py:325",
-             launches=counts["K1"], **k1),
+             launches=LAUNCHES["K1"], **k1),
         dict(name="seqsum", route="cuda",
              source="so_tpu_torch/csrc/seqsum.cu",
              replaces="so_tpu/ops/seqsum.py:18",
-             launches=counts["K2"], **k2),
+             launches=LAUNCHES["K2"], **k2),
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

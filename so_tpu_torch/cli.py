@@ -1,14 +1,15 @@
-"""Command-line entry point (port of so_tpu/cli.py, the single-threshold set).
+"""Command-line entry point (port of so_tpu/cli.py, the single-device set).
 
 Takes the reference's flags with so_tpu's semantics and defaults:
 -i -o -z -O -L -s -rho -delta -m -p -c -cx -cy -cz -std -M -u -list -grp
--gtp -subsumed -ignored -stat -mark -dark -gas -star -all, plus --tipsy
-and --verbose. ``--device {cuda,cpu}`` (default cuda) picks the device;
+-gtp -subsumed -ignored -pot -stat -mark -dark -gas -star -all, plus
+so_tpu's --tipsy, --verbose, --deltas, --survey, --checkpoint and
+--profile. ``--device {cuda,cpu}`` (default cuda) picks the device;
 without a usable CUDA card a cuda run fails instead of moving to the CPU.
 
-so_tpu options that are not ported yet (-pot, --survey, --deltas,
---checkpoint, --profile, --mesh, --distributed) exit with status 1 and a
-one-line message naming their ROADMAP.md item.
+so_tpu's multi-device options (--mesh, --distributed) are not ported
+yet: they exit with status 1 and a one-line message naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from so_tpu.stats import format_stats
 from so_tpu.units import unit_conversions
 from so_tpu.version import __version__
 
-from .engine.pipeline import SOParams, not_ported, run_so
+from .engine.pipeline import (NOT_PORTED, SOParams, not_ported, run_so,
+                              run_so_multi)
 
 BANNER = (f"so_tpu_torch {__version__} (PyTorch/CUDA SO engine; "
           "reference parity: SO 1.7)")
@@ -43,19 +45,20 @@ python -m so_tpu_torch -i <SKID .gtp file> [-o <outfilebase>]
       [-O <fOmega0>]  [-L]  [-z <fRedshift>]  [-s <nSmooth>]
       [-p <xyzPeriod>]  [-c <xyzCenter>]
       [-cx <xCenter>]  [-cy <yCenter>]  [-cz <zCenter>]
-      [-u <fMassUnit> <fMpcUnit>]
+      [-u <fMassUnit> <fMpcUnit>]  [-pot]
       [--tipsy <snapshot>] [--verbose] [--device {cuda,cpu}]
+      [--deltas <d1,d2,...>] [--survey] [--checkpoint <state.npz>]
+      [--profile <logdir>]
 
 Spherical-overdensity halo characterization on PyTorch (CUDA kernels on
 an NVIDIA GPU, or the plain torch versions with --device cpu). Flags and
 outputs follow so_tpu; see `python -m so_tpu` for their descriptions.
-Not yet in this package: -pot, --survey, --deltas, --checkpoint,
---profile, --mesh, --distributed.
+Not yet in this package: --mesh, --distributed.
 """
 
 
-def usage(out=sys.stderr) -> "NoReturn":
-    out.write(USAGE)
+def usage() -> "NoReturn":
+    sys.stderr.write(USAGE)
     raise SystemExit(1)
 
 
@@ -91,6 +94,8 @@ def main(argv=None) -> int:
     tipsy_file = None
     verbose = False
     device = "cuda"
+    b_pot = b_survey = False
+    deltas = checkpoint = profile_dir = None
 
     def need(i):
         if i >= len(argv):
@@ -147,12 +152,18 @@ def main(argv=None) -> int:
             b_grp = True; i += 1
         elif a == "-gtp":
             b_gtp = True; i += 1
+        elif a == "-pot":
+            b_pot = True; i += 1
+            if stat_file is not None:
+                usage()
         elif a == "-subsumed":
             b_subsumed = True; i += 1
         elif a == "-ignored":
             b_ignored = True; i += 1
         elif a == "-stat":
             i += 1; stat_file = need(i); i += 1
+            if b_pot:
+                usage()
         elif a == "-mark":
             i += 1; mark_file = need(i); b_mark = True; i += 1
         elif a == "-dark":
@@ -172,8 +183,17 @@ def main(argv=None) -> int:
             if device not in ("cuda", "cpu"):
                 sys.stderr.write("--device expects cuda or cpu\n")
                 raise SystemExit(1)
-        elif a in ("-pot", "--survey", "--deltas", "--checkpoint",
-                   "--profile", "--mesh", "--distributed"):
+        elif a == "--profile":
+            i += 1; profile_dir = need(i); i += 1
+        elif a == "--checkpoint":
+            i += 1; checkpoint = need(i); i += 1
+        elif a == "--deltas":
+            # one full output set per threshold (<base>.d<delta>.*), all
+            # solved against shared gathers (engine/multi.py)
+            i += 1; deltas = [ffloat(x) for x in need(i).split(",")]; i += 1
+        elif a == "--survey":
+            b_survey = True; i += 1
+        elif a in NOT_PORTED:
             refuse(a)
         else:
             usage()
@@ -233,43 +253,66 @@ def main(argv=None) -> int:
                     if on)
     units = unit_conversions(f_mass_unit, f_mpc_unit, f_redshift)
 
+    if checkpoint is not None and deltas is not None:
+        # run_so_multi never reads params.checkpoint: refuse rather than
+        # run uncheckpointed
+        sys.stderr.write("--deltas with --checkpoint is not supported yet\n")
+        raise SystemExit(1)
+    # --survey forces the classifier pre-pass; without it the engine
+    # auto-gates the pass by sampling (engine/solver.py SURVEY_*)
     params = SOParams(threshold=float(np.float32(f_threshold)),
                       n_members=n_members,
                       period=tuple(f_period), center=tuple(f_center),
-                      species=species, grav=grav, verbose=verbose,
-                      device=device)
-    run = run_so(particles, catalog, params)
+                      b_pot=b_pot, species=species, grav=grav,
+                      verbose=verbose, profile_dir=profile_dir,
+                      checkpoint=checkpoint,
+                      survey=True if b_survey else None, device=device)
 
-    with open(f"{out_base}.sovcirc", "w") as fp_out:
-        write_sovcirc_header(fp_out, run_time, gtp_file, list_file,
-                             stat_file, np.float32(f_threshold), b_threshold,
-                             f_redshift, f_omega, f_lambda, b_periodic,
-                             f_period, f_center, f_min_mass, n_members, False,
-                             f_mass_unit, f_mpc_unit)
-        # stats to stderr and the catalog file (kdOutStats)
-        sys.stderr.write(format_stats(run.stats, for_file=False))
-        fp_out.write(format_stats(run.stats, for_file=True))
-        for sp in (DARK, GAS, STAR, MARK):
-            if sp in species:
-                write_profile_file(f"{out_base}.{SPECIES_EXT[sp]}", fp_out,
-                                   run_time, sp, catalog.index,
-                                   run.derived.profiles[sp], units)
-        write_sovcirc_rows(fp_out, catalog.index, run.mvir, run.rvir,
-                           run.derived.rmass, run.derived.rmax,
-                           run.derived.vmax, run.derived.vcirc, units)
-    if b_grp:
-        write_array_file(f"{out_base}.sogrp", run.conflicts.igrp)
-    if b_gtp:
-        write_sogtp(f"{out_base}.sogtp", f_time, catalog.n_in_gtp,
-                    catalog.index, run.mvir, run.rvir, catalog.pos,
-                    run.solve.vcm, b_standard)
-    if b_subsumed:
-        write_array_file(f"{out_base}.sosub", run.conflicts.n_subsumed)
-    if b_ignored:
-        write_array_file(f"{out_base}.soign", run.conflicts.n_ignored)
+    def write_outputs(base, run, threshold, threshold_user):
+        with open(f"{base}.sovcirc", "w") as fp_out:
+            write_sovcirc_header(fp_out, run_time, gtp_file, list_file,
+                                 stat_file, np.float32(threshold),
+                                 threshold_user, f_redshift, f_omega,
+                                 f_lambda, b_periodic, f_period, f_center,
+                                 f_min_mass, n_members, b_pot, f_mass_unit,
+                                 f_mpc_unit)
+            # stats to stderr and the catalog file (kdOutStats)
+            sys.stderr.write(format_stats(run.stats, for_file=False))
+            fp_out.write(format_stats(run.stats, for_file=True))
+            for sp in (DARK, GAS, STAR, MARK):
+                if sp in species:
+                    write_profile_file(f"{base}.{SPECIES_EXT[sp]}", fp_out,
+                                       run_time, sp, catalog.index,
+                                       run.derived.profiles[sp], units)
+            write_sovcirc_rows(fp_out, catalog.index, run.mvir, run.rvir,
+                               run.derived.rmass, run.derived.rmax,
+                               run.derived.vmax, run.derived.vcirc, units)
+        if b_grp:
+            write_array_file(f"{base}.sogrp", run.conflicts.igrp)
+        if b_gtp:
+            write_sogtp(f"{base}.sogtp", f_time, catalog.n_in_gtp,
+                        catalog.index, run.mvir, run.rvir, catalog.pos,
+                        run.solve.vcm, b_standard)
+        if b_subsumed:
+            write_array_file(f"{base}.sosub", run.conflicts.n_subsumed)
+        if b_ignored:
+            write_array_file(f"{base}.soign", run.conflicts.n_ignored)
 
-    sec = int(run.solve_seconds)
-    usec = int((run.solve_seconds - sec) * 1e6)
+    if deltas is not None:
+        thresholds = [float(np.float32(d * np.float32(f_omega)))
+                      for d in deltas]
+        runs = run_so_multi(particles, catalog, params, thresholds)
+        for d, thr, run in zip(deltas, thresholds, runs):
+            dstr = ("%g" % d).replace("+", "")
+            write_outputs(f"{out_base}.d{dstr}", run, thr, True)
+        solve_seconds = runs[-1].solve_seconds if runs else 0.0
+    else:
+        run = run_so(particles, catalog, params)
+        write_outputs(out_base, run, f_threshold, b_threshold)
+        solve_seconds = run.solve_seconds
+
+    sec = int(solve_seconds)
+    usec = int((solve_seconds - sec) * 1e6)
     sys.stderr.write("SO CPU Time:")
     sys.stderr.write("   %d.%06d\n\n" % (sec, usec))
     return 0

@@ -18,8 +18,9 @@
 //
 // Later work (not here): load coalesced (32 rows x 32 columns) tiles into
 // shared memory and let each thread walk its row from there, and fuse the
-// density scan of engine/solver.scan_sorted (rho, the two-consecutive rule,
-// Mvir/j selection) onto the accumulator so the cumsum never hits memory.
+// density scan of engine/solver (enclosed_density's rho, scan_verdict's
+// two-consecutive rule and Mvir/j selection) onto the accumulator so the
+// cumsum never hits memory.
 
 #include <cuda_runtime.h>
 

@@ -24,9 +24,11 @@ import torch
 
 from so_tpu.io.tipsy import MARK
 
+from ..ops.gather import slab_gather
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
-from .solver import _uniform_cum, first_true
+from .solver import (FUSED_SLOT_BUDGET, _chunk_for, _foot_stage, _k_limit,
+                     _pick_level_span, _uniform_cum, first_true)
 
 NVCIRC = 8          # kd2.h:10
 NMASSPROFILE = 16   # kd2.h:12
@@ -48,6 +50,15 @@ class DerivedResult:
                    vmax=np.zeros(G, np.float32),
                    profiles={sp: np.zeros((G, NMASSPROFILE), np.float32)
                              for sp in species})
+
+    def fill(self, part: np.ndarray, ok: np.ndarray, der: dict) -> None:
+        """Rows ``part[ok]`` from one dispatch's derived_from_sorted dict
+        (device tensors over ``part``)."""
+        idx = part[ok]
+        for f in ("vcirc", "rmass", "rmax", "vmax"):
+            getattr(self, f)[idx] = der[f].cpu().numpy()[ok]
+        for sp, v in self.profiles.items():
+            v[idx] = der["profiles"][sp].cpu().numpy()[ok]
 
 
 def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
@@ -130,3 +141,96 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
 
     return dict(vcirc=vcirc, rmass=rmass, rmax=rmax, vmax=vmax,
                 profiles=profs)
+
+
+def _derived_stage(grid, level: int, K: int, S: int, n_members: int,
+                   species: tuple, centers, rvir, mvir, grav: float):
+    """One capacity tier of compute_derived: (derived dict, overflow)."""
+    fball = 2.0 * rvir
+    um = grid.uniform_mass
+    chans = ((() if um is not None else ("mass",))
+             + (("meta",) if species else ()))
+    sg = slab_gather(grid, level, centers, fball, fball * fball, K, S,
+                     channels=chans)
+    if species:
+        meta = sg.channels[-1].to(torch.int32)
+        ptype_s, mark_s = meta & 0xF, (meta >> 4) > 0
+    else:
+        ptype_s = torch.zeros_like(sg.d2, dtype=torch.int32)
+        mark_s = torch.zeros_like(sg.d2, dtype=torch.bool)
+    der = derived_from_sorted(sg.d2, None if um is not None
+                              else sg.channels[0], ptype_s, mark_s, sg.n_in,
+                              rvir, mvir, fball, n_members, species, grav,
+                              uniform_m=um)
+    return der, sg.overflow
+
+
+def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
+                todo: np.ndarray, stage) -> None:
+    """Dispatch the halos ``todo`` at their 2*Rvir balls ``fball``, with
+    capacities from the exact per-halo slab footprints (one
+    enumeration-only pass, _foot_stage); a halo whose dispatch level needs
+    more slots overflows and retries at 4x. ``stage(part, level, K, S)``
+    gathers one dispatch, keeps the results of the rows that did not
+    overflow, and returns the host overflow mask."""
+    dev = grid.device
+    kl = _k_limit(grid)
+    g0, S0 = _pick_level_span(grid, float(fball[todo].max()))
+    foot = _foot_stage(grid, g0, S0,
+                       torch.as_tensor(centers[todo], device=dev),
+                       torch.as_tensor(fball[todo], device=dev)).cpu().numpy()
+    need_cap = np.zeros(centers.shape[0], np.int64)
+    need_cap[todo] = 2 ** np.ceil(np.log2(np.maximum(foot, 256))).astype(
+        np.int64)
+    rounds = 0
+    while todo.size:
+        rounds += 1
+        if rounds > 64:
+            raise RuntimeError("2*Rvir gather escalation runaway")
+        next_todo = []
+        for capacity in np.unique(need_cap[todo]):
+            sel = todo[need_cap[todo] == capacity]
+            K = int(min(capacity, max(512, kl)))
+            level, S = _pick_level_span(grid, float(fball[sel].max()))
+            chunk = _chunk_for(K, FUSED_SLOT_BUDGET)
+            for lo in range(0, sel.size, chunk):
+                part = sel[lo:lo + chunk]
+                ovf = stage(part, level, K, S)
+                need_cap[part[ovf]] = np.minimum(need_cap[part[ovf]] * 4,
+                                                 2 * kl)
+                next_todo.append(part[ovf])
+        todo = np.concatenate(next_todo)
+
+
+def compute_derived(grid, centers: np.ndarray, rvir: np.ndarray,
+                    mvir: np.ndarray, eligible: np.ndarray,
+                    n_members: int = 8, species: tuple = (),
+                    grav: float = 1.0) -> DerivedResult:
+    """Derived quantities for the eligible halos from a K1 gather at
+    2*Rvir (zeros elsewhere): the checkpoint-resume path, where member
+    lists come from the saved state and only this pass runs on the card."""
+    G = centers.shape[0]
+    out = DerivedResult.zeros(G, species)
+    todo = np.nonzero(eligible)[0]
+    if todo.size == 0:
+        return out
+    dev = grid.device
+    centers = np.asarray(centers, np.float32)
+    rvir = np.asarray(rvir, np.float32)
+    mvir = np.asarray(mvir, np.float32)
+    grav = float(np.float32(grav))
+
+    def stage(part, level, K, S):
+        def dev_t(a):
+            return torch.as_tensor(a[part], device=dev)
+
+        der, ovf = _derived_stage(grid, level, K, S, n_members, species,
+                                  dev_t(centers), dev_t(rvir), dev_t(mvir),
+                                  grav)
+        ovf = ovf.cpu().numpy()
+        out.fill(part, ~ovf, der)
+        return ovf
+
+    ball_rounds(grid, centers, (np.float32(2.0) * rvir).astype(np.float32),
+                todo, stage)
+    return out

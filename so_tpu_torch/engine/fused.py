@@ -21,10 +21,8 @@ import torch
 
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
-from .derived import DerivedResult, derived_from_sorted
+from .derived import DerivedResult, ball_rounds, derived_from_sorted
 from .members import vcm_from_members
-from .solver import (FUSED_SLOT_BUDGET, _chunk_for, _foot_stage, _k_limit,
-                     _pick_level_span)
 
 
 def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
@@ -66,11 +64,10 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
                         grav: float = 1.0):
     """One fused pass over the solved halos: (members, vcm, DerivedResult).
 
-    Capacities come from the exact per-halo slab footprints of the 2*Rvir
-    balls (one enumeration-only pass, _foot_stage); a halo whose
-    dispatch level needs more slots overflows and retries at 4x.
-    ``host_mv`` is the ``(vel, mass)`` pair of per-particle host arrays
-    in original file order.
+    Dispatches follow derived.ball_rounds (capacities from the exact
+    footprints of the 2*Rvir balls, x4 on overflow). ``host_mv`` is the
+    ``(vel, mass)`` pair of per-particle host arrays in original file
+    order.
     """
     G = centers.shape[0]
     dev = grid.device
@@ -84,57 +81,27 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
     j = np.asarray(j, np.int64)
     mvir = np.asarray(mvir, np.float32)
     grav = float(np.float32(grav))
-    kl = _k_limit(grid)
 
-    fball = (np.float32(2.0) * rvir).astype(np.float32)
-    g0, S0 = _pick_level_span(grid, float(fball.max()))
-    foot = _foot_stage(grid, g0, S0, torch.as_tensor(centers, device=dev),
-                       torch.as_tensor(fball, device=dev)).cpu().numpy()
-    need_cap = 2 ** np.ceil(np.log2(np.maximum(foot, 256))).astype(np.int64)
+    def stage(part, level, K, S):
+        def dev_t(a):
+            return torch.as_tensor(a[part], device=dev)
 
-    todo = np.arange(G)
-    rounds = 0
-    while todo.size:
-        rounds += 1
-        if rounds > 64:
-            raise RuntimeError("fused member/derived escalation runaway")
-        next_todo = []
-        for capacity in np.unique(need_cap[todo]):
-            sel = todo[need_cap[todo] == capacity]
-            K = int(min(capacity, max(512, kl)))
-            level, S = _pick_level_span(grid, float(fball[sel].max()))
-            chunk = _chunk_for(K, FUSED_SLOT_BUDGET)
-            for lo in range(0, sel.size, chunk):
-                part = sel[lo:lo + chunk]
+        mem, counts, der, ovf = _fused_stage(
+            grid, level, K, S, n_members, species, dev_t(centers),
+            dev_t(rvir), dev_t(j), dev_t(mvir), grav)
+        ovf = ovf.cpu().numpy()
+        counts = counts.cpu().numpy()
+        rows64 = mem.cpu().numpy()
+        ok = ~ovf
+        derived.fill(part, ok, der)
+        pieces = np.split(rows64, np.cumsum(counts)[:-1])
+        for i in np.nonzero(ok)[0]:
+            out_members[part[i]] = pieces[i]
+        # group mean velocity from the member rows (_VcmParticles)
+        vcm[part[ok]] = vcm_from_members(*host_mv, rows64, counts,
+                                         mvir[part])[ok]
+        return ovf
 
-                def dev_t(a):
-                    return torch.as_tensor(a[part], device=dev)
-
-                mem, counts, der, ovf = _fused_stage(
-                    grid, level, K, S, n_members, species, dev_t(centers),
-                    dev_t(rvir), dev_t(j), dev_t(mvir), grav)
-                ovf = ovf.cpu().numpy()
-                counts = counts.cpu().numpy()
-                rows64 = mem.cpu().numpy()
-                okm = ~ovf
-                idx = part[okm]
-                derived.vcirc[idx] = der["vcirc"].cpu().numpy()[okm]
-                derived.rmass[idx] = der["rmass"].cpu().numpy()[okm]
-                derived.rmax[idx] = der["rmax"].cpu().numpy()[okm]
-                derived.vmax[idx] = der["vmax"].cpu().numpy()[okm]
-                for sp in species:
-                    derived.profiles[sp][idx] = \
-                        der["profiles"][sp].cpu().numpy()[okm]
-                pieces = np.split(rows64, np.cumsum(counts)[:-1])
-                for i, h in enumerate(part):
-                    if ovf[i]:
-                        next_todo.append(h)
-                    else:
-                        out_members[h] = pieces[i]
-                need_cap[part[ovf]] = np.minimum(need_cap[part[ovf]] * 4,
-                                                 2 * kl)
-                # group mean velocity from the member rows (_VcmParticles)
-                vcm[idx] = vcm_from_members(*host_mv, rows64, counts,
-                                            mvir[part])[okm]
-        todo = np.asarray(next_todo, np.int64)
+    ball_rounds(grid, centers, (np.float32(2.0) * rvir).astype(np.float32),
+                np.arange(G), stage)
     return out_members, vcm, derived

@@ -1,19 +1,23 @@
-"""End-to-end single-threshold SO pipeline (port of so_tpu/engine/pipeline.py).
+"""End-to-end SO pipeline (port of so_tpu/engine/pipeline.py).
 
 Stage order preserves the reference's observable semantics:
   1. build the spatial index over all particles            (kdBuildTree)
-  2. batched R_Delta solve for all halos                   (kdRvir)
-  3. one fused gather at 2*Rvir: member lists + derived    (kdTagParticles
+  2. optional -pot recentring, batched over all halos      (kd2.c:749-761)
+  3. batched R_Delta solve for all halos                   (kdRvir)
+  4. one fused gather at 2*Rvir: member lists + derived    (kdTagParticles
      quantities                                              + kdVcirc)
-  4. mass-ordered conflict pass on the host                (kdSO)
-  5. stats                                                 (kdOutStats)
+  5. mass-ordered conflict pass on the host                (kdSO)
+  6. stats                                                 (kdOutStats)
 
-Steps 2-3 read only particle data, which is what makes the batched form
-exact; step 4 is sequential and runs in so_tpu's native C pass.
+Steps 2-4 read only particle data, which is what makes the batched form
+exact; step 5 is sequential and runs in so_tpu's native C pass.
+run_so_multi solves several thresholds against shared gathers and runs
+steps 4-6 once per threshold.
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from dataclasses import dataclass, field
 
@@ -25,20 +29,18 @@ from so_tpu.io.tipsy import ParticleSet
 from so_tpu.numerics import indexx
 from so_tpu.stats import RunStats, compute_stats
 
-from ..ops.grid import build_grid
-from ..profiling import PhaseTimer
+from .. import checkpoint
+from ..ops.grid import CellGrid, build_grid
+from ..profiling import PhaseTimer, profile_trace
 from .conflicts import ConflictState, resolve_conflicts
-from .derived import DerivedResult
+from .derived import DerivedResult, compute_derived
 from .fused import members_and_derived
+from .multi import solve_rvir_multi
+from .recenter import recenter_most_bound
 from .solver import SolveResult, solve_rvir
 
 # options of so_tpu that this package does not run yet -> ROADMAP.md item
 NOT_PORTED = {
-    "-pot": 9,
-    "--survey": 10,
-    "--deltas": 11,
-    "--checkpoint": 12,
-    "--profile": 13,
     "--mesh": 16,
     "--distributed": 16,
 }
@@ -68,14 +70,15 @@ class SOParams:
     n_members: int = 8
     period: tuple = (1.0, 1.0, 1.0)
     center: tuple = (0.0, 0.0, 0.0)
-    b_pot: bool = False                # not ported: raises
+    b_pot: bool = False                # -pot most-bound recentring
     species: tuple = ()                # subset of (DARK, GAS, STAR, MARK)
     grav: float = 1.0
     verbose: bool = False
-    profile_dir: str | None = None     # not ported: raises
-    checkpoint: str | None = None      # not ported: raises
-    survey: bool | None = None         # True (forced pre-pass) raises;
-    #                                    None/False run the plain solve
+    profile_dir: str | None = None     # torch.profiler trace output
+    checkpoint: str | None = None      # solve-state save/resume (.npz)
+    survey: bool | None = None         # sort-free -1/-2 pre-pass: True
+    #                                    forces (--survey), False disables,
+    #                                    None auto-gates by sampling
     device: str = "cuda"               # "cuda" or "cpu"
 
 
@@ -102,41 +105,99 @@ class SORun:
         return self.conflicts.rvir
 
 
-def _check_ported(params: SOParams) -> None:
-    for on, option in ((params.b_pot, "-pot"),
-                       (params.checkpoint is not None, "--checkpoint"),
-                       (params.profile_dir is not None, "--profile"),
-                       (params.survey is True, "--survey")):
-        if on:
-            raise NotImplementedError(not_ported(option))
-
-
-def run_so(particles: ParticleSet, catalog: GroupCatalog,
-           params: SOParams) -> SORun:
-    _check_ported(params)
-    dev = resolve_device(params.device)
-    timer = PhaseTimer(device=dev)
-    with timer.phase("grid build"):
-        grid = build_grid(
-            particles.pos, particles.mass, vel=particles.vel,
-            ptype=particles.ptype_all(), mark=particles.mark,
-            period=params.period, center=params.center, device=dev)
-
+def _grid_and_centers(particles, catalog, params, dev, timer, grid):
+    """Grid build (unless given) and the optionally recentred centers."""
+    if grid is None:
+        with timer.phase("grid build"):
+            grid = build_grid(
+                particles.pos, particles.mass, vel=particles.vel,
+                phi=particles.phi if params.b_pot else None,
+                ptype=particles.ptype_all(), mark=particles.mark,
+                period=params.period, center=params.center, device=dev)
     centers = np.asarray(catalog.pos, np.float32).copy()
     rgtp = np.asarray(catalog.rgtp, np.float32)
+    if params.b_pot:
+        with timer.phase("recenter (-pot)"):
+            centers = recenter_most_bound(grid, centers, rgtp)
+            catalog.pos = centers
+    return grid, centers, rgtp
 
-    t0 = _time.perf_counter()
-    with timer.phase("R_Delta solve"):
-        solve = solve_rvir(grid, centers, rgtp, params.threshold,
-                           n_members=params.n_members)
-    run = _post_solve(grid, particles, catalog, centers, solve, params, timer)
-    run.solve_seconds = _time.perf_counter() - t0
-    run.phases = dict(timer.phases)
+
+def run_so(particles: ParticleSet, catalog: GroupCatalog, params: SOParams,
+           grid: CellGrid | None = None) -> SORun:
+    """The single-threshold pipeline. ``grid`` may be a prebuilt grid of
+    these particles on the run's device (with phi for -pot)."""
+    dev = resolve_device(params.device)
+    timer = PhaseTimer(device=dev)
+    with profile_trace(params.profile_dir, dev):
+        grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
+                                                dev, timer, grid)
+        t0 = _time.perf_counter()
+        ck = params.checkpoint
+        ck_members = digest = None
+        if ck is not None:
+            # guards resume against a different snapshot/catalog/params
+            digest = checkpoint.input_digest(
+                particles, centers, rgtp, params.threshold, params.n_members,
+                params.period, params.center)
+        if ck is not None and os.path.exists(ck):
+            with timer.phase("checkpoint resume"):
+                solve, ck_members, ck_centers = checkpoint.load_solve(
+                    ck, digest)
+                centers = np.asarray(ck_centers, np.float32)
+                catalog.pos = centers
+        else:
+            with timer.phase("R_Delta solve"):
+                solve = solve_rvir(grid, centers, rgtp, params.threshold,
+                                   n_members=params.n_members,
+                                   survey=params.survey)
+        run = _post_solve(grid, particles, catalog, centers, solve, params,
+                          timer, members=ck_members)
+        run.solve_seconds = _time.perf_counter() - t0
+        if ck is not None and ck_members is None:
+            with timer.phase("checkpoint save"):
+                checkpoint.save_solve(ck, run.solve, run.members, centers,
+                                      digest=digest)
+        run.phases = dict(timer.phases)
 
     if params.verbose:
         timer.report(items={"R_Delta solve": catalog.n,
                             "members + derived (fused)": catalog.n})
     return run
+
+
+def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
+                 params: SOParams, thresholds,
+                 grid: CellGrid | None = None) -> list[SORun]:
+    """Multi-threshold pipeline: one grid and one shared-gather solve
+    (engine.multi), then the full post-solve per threshold; each SORun
+    equals an independent run_so at that threshold."""
+    dev = resolve_device(params.device)
+    timer = PhaseTimer(device=dev)
+    runs: list[SORun] = []
+    with profile_trace(params.profile_dir, dev):
+        grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
+                                                dev, timer, grid)
+        t0 = _time.perf_counter()
+        with timer.phase("R_Delta solve (multi)"):
+            multi = solve_rvir_multi(grid, centers, rgtp, thresholds,
+                                     n_members=params.n_members,
+                                     survey=params.survey)
+        for t in range(len(thresholds)):
+            solve_t = SolveResult(
+                code=multi.code[t].copy(), mvir=multi.mvir[t].copy(),
+                rvir=multi.rvir[t].copy(), j=multi.j[t].copy(),
+                d2cut=multi.d2cut[t].copy(),
+                vcm=np.zeros((catalog.n, 3), np.float32))
+            run = _post_solve(grid, particles, catalog, centers, solve_t,
+                              params, timer)
+            run.solve_seconds = _time.perf_counter() - t0
+            runs.append(run)
+        for run in runs:
+            run.phases = dict(timer.phases)
+    if params.verbose:
+        timer.report()
+    return runs
 
 
 def _scatter_derived(src, ok_rows, eligible, n, species):
@@ -155,21 +216,25 @@ def _scatter_derived(src, ok_rows, eligible, n, species):
 
 
 def _post_solve(grid, particles, catalog, centers, solve, params,
-                timer) -> SORun:
+                timer, members=None) -> SORun:
+    """Members, conflicts, derived quantities and stats. ``members`` comes
+    from a checkpoint on resume: only the derived pass then gathers."""
     ok = solve.code == 0
-    with timer.phase("members + derived (fused)"):
-        # member lists AND derived quantities from ONE gather at 2*Rvir
-        # (the interior is a sorted prefix of the kdVcirc ball;
-        # kd2.c:511-514 vs 823)
-        members_ok, vcm_ok, derived_all = members_and_derived(
-            grid, centers[ok], solve.rvir[ok], solve.j[ok], solve.mvir[ok],
-            host_mv=(particles.vel, particles.mass),
-            n_members=params.n_members, species=tuple(params.species),
-            grav=params.grav)
-        members = [None] * catalog.n
-        for slot, h in enumerate(np.nonzero(ok)[0]):
-            members[h] = members_ok[slot]
-        solve.vcm[ok] = vcm_ok  # _VcmParticles (kd2.c:595-609)
+    derived_all = None
+    if members is None:
+        with timer.phase("members + derived (fused)"):
+            # member lists AND derived quantities from ONE gather at
+            # 2*Rvir (the interior is a sorted prefix of the kdVcirc ball;
+            # kd2.c:511-514 vs 823)
+            members_ok, vcm_ok, derived_all = members_and_derived(
+                grid, centers[ok], solve.rvir[ok], solve.j[ok],
+                solve.mvir[ok], host_mv=(particles.vel, particles.mass),
+                n_members=params.n_members, species=tuple(params.species),
+                grav=params.grav)
+            members = [None] * catalog.n
+            for slot, h in enumerate(np.nonzero(ok)[0]):
+                members[h] = members_ok[slot]
+            solve.vcm[ok] = vcm_ok  # _VcmParticles (kd2.c:595-609)
 
     with timer.phase("conflict protocol"):
         # ascending input-mass order (kdSortMass, kd2.c:843-861)
@@ -180,9 +245,17 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
 
     eligible = ok & ~conflicts.slurped_own  # kdSO eligibility (kd2.c:884)
     with timer.phase("derived quantities"):
-        # zero the ineligible (slurped-own) rows — kdVcirc skip, kd2.c:884
-        derived = _scatter_derived(derived_all, np.nonzero(ok)[0], eligible,
-                                   catalog.n, tuple(params.species))
+        if derived_all is not None:
+            # zero the ineligible (slurped-own) rows — kdVcirc skip,
+            # kd2.c:884
+            derived = _scatter_derived(derived_all, np.nonzero(ok)[0],
+                                       eligible, catalog.n,
+                                       tuple(params.species))
+        else:
+            derived = compute_derived(grid, centers, solve.rvir, solve.mvir,
+                                      eligible, n_members=params.n_members,
+                                      species=tuple(params.species),
+                                      grav=params.grav)
 
     with timer.phase("stats"):
         stats = compute_stats(np.asarray(particles.mass), conflicts.igrp,

@@ -1,5 +1,5 @@
-"""Batched R_Delta solver (port of so_tpu/engine/solver.py, the
-single-threshold classic escalation).
+"""Batched R_Delta solver (port of so_tpu/engine/solver.py: the classic
+escalation and the --survey pre-pass).
 
 The reference grows a gather ball from Rgtp by x1.2 per pass (kd2.c:745-769),
 sorts hits by distance and scans cumulative mass until the enclosed
@@ -22,7 +22,10 @@ distance-sorted hits inside the last ladder radius:
 Results are therefore independent of how halos are batched, which level
 and span each dispatch uses, and how far each escalation jumps (asserted
 for so_tpu in tests/test_solver.py); the port keeps only the classic
-round loop and drops the TPU's dispatch-shaping machinery.
+round loop and drops the TPU's dispatch-shaping machinery. The scan is
+split into its threshold-free half (enclosed_density) and a verdict per
+threshold (scan_verdict); the round loop itself is multi.solve_rvir_multi,
+and solve_rvir is its one-threshold case.
 """
 
 from __future__ import annotations
@@ -34,10 +37,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.gather import cell_ranges, slab_gather
+from ..ops.gather import cell_ranges
 from ..ops.grid import CellGrid
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
+from ..ops.slab_gather import chunk_descriptors, slab_gather_rows
 
 FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
@@ -116,21 +120,28 @@ def first_true(mask: torch.Tensor):
     return found, torch.where(found, first, torch.zeros_like(first))
 
 
-def scan_sorted(d2_s, mass_s, n_in, thr: float, n_members: int,
-                uniform_m: float | None = None):
-    """The density scan over distance-sorted hits. ``mass_s`` is zero on
-    invalid slots, or None on uniform-mass grids (the cum ladder is then
-    shared by every halo). Returns found, jstar, mvir, d2cut per halo."""
-    B, K = d2_s.shape
-    dev = d2_s.device
-    slot = torch.arange(K, device=dev)[None, :]
+def enclosed_density(d2_s, mass_s, n_in, uniform_m: float | None = None):
+    """The threshold-free half of the scan over distance-sorted hits:
+    (cum, rho), the serial f32 cumulative mass (K2, or the shared ladder
+    when ``mass_s`` is None on a uniform-mass grid) and the enclosed
+    density at each slot. ``mass_s`` is zero on invalid slots."""
+    K = d2_s.shape[1]
+    slot = torch.arange(K, device=d2_s.device)[None, :]
     if uniform_m is not None:
         cum, _ = _uniform_cum(uniform_m, K, n_in, slot < n_in[:, None])
     else:
         cum = seq_cumsum(mass_s)          # C-order f32 (kd2.c:807), K2
-
     r3 = d2_s * sqrt_rn(d2_s)
-    rho = cum / (float(FOUR_THIRDS_PI) * r3)
+    return cum, cum / (float(FOUR_THIRDS_PI) * r3)
+
+
+def scan_verdict(d2_s, mass_s, n_in, cum, rho, thr: float, n_members: int,
+                 uniform_m: float | None = None):
+    """The per-threshold half: found, jstar, mvir, d2cut per halo from
+    enclosed_density's (cum, rho)."""
+    B, K = d2_s.shape
+    dev = d2_s.device
+    slot = torch.arange(K, device=dev)[None, :]
     rho_next = torch.cat([rho[:, 1:], torch.full((B, 1), torch.inf,
                                                  device=dev)], dim=1)
     thr = float(np.float32(thr))
@@ -152,20 +163,165 @@ def scan_sorted(d2_s, mass_s, n_in, thr: float, n_members: int,
     return dict(found=found, jstar=jstar, mvir=mvir, d2cut=d2cut)
 
 
-def _solve_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
-                 centers, radii, thr: float):
-    """One capacity tier: gather + sort + scan for a batch of halos.
-    Returns host arrays ((B, 4) ints [n_in, jstar, found, overflow],
-    (B, 2) f32 [mvir, d2cut])."""
+def unsorted_gather(grid: CellGrid, level: int, centers, radii, K: int,
+                    S: int, payload=None, chans: tuple = (),
+                    want_idx: bool = False):
+    """K1 with no row sort: (d2, channels, idx, overflow) in the kernel's
+    slot order. ``payload`` replaces the grid's (-pot puts phi in the
+    mass row)."""
+    r2 = radii * radii
+    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2, S,
+                                    align=grid.chunk)
+    a0, lo, hi, nt = chunk_descriptors(st, cnt, q, K, grid.chunk)
+    d2, ch, idx = slab_gather_rows(
+        grid.soa8t if payload is None else payload, a0, lo, hi, nt, centers,
+        grid.period, r2, K, grid.chunk, chans, want_idx=want_idx)
+    return d2, ch, idx, total > K
+
+
+def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
+                    n_members: int, centers, radii,
+                    thresholds: np.ndarray) -> np.ndarray:
+    """Sort-free -1/-2 classification from the first-rung hits.
+
+    The -1 verdict needs only the in-ball count (kd2.c:772-778) and the
+    -2 verdict only the first nMembers sorted hits (the two-consecutive
+    rule firing at the earliest eligible slot, kd2.c:785-796): an
+    unsorted K1 gather plus a count test (uniform masses) or a 16-wide
+    nearest prefix (general masses) replaces the K-wide sort. Halos it
+    cannot decide re-run in the full rounds, whose verdict is the
+    contract. ``thresholds`` is a (T,) f32 vector: the -2 rule is
+    evaluated per threshold against the same gather. Returns the host
+    (B, 2) i32 [n_in | overflow << 31, bit t = -2 at thresholds[t]]."""
     um = grid.uniform_mass
-    g = slab_gather(grid, level, centers, radii, radii * radii, K, S,
-                    channels=() if um is not None else ("mass",))
-    out = scan_sorted(g.d2, None if um is not None else g.channels[0],
-                      g.n_in, thr, n_members, uniform_m=um)
-    ints = torch.stack([g.n_in, out["jstar"], out["found"].long(),
-                        g.overflow.long()], dim=1)
-    flts = torch.stack([out["mvir"], out["d2cut"]], dim=1)
-    return ints.cpu().numpy(), flts.cpu().numpy()
+    d2, ch, _, overflow = unsorted_gather(
+        grid, level, centers, radii, K, S,
+        chans=() if um is not None else ("mass",))
+    n_in = torch.isfinite(d2).sum(dim=1)
+    if um is not None:
+        m2 = _classify_counts(d2, n_in, thresholds, n_members, um)
+    else:
+        kk = min(K, max(16, n_members + 2))   # a clamped window defers -2
+        d2k, mk = _classify_prefix(d2, ch[:, 0], kk)
+        m2 = _classify_verdict(d2k, mk, n_in, thresholds, n_members)
+    w0 = n_in | (overflow.long() << 31)
+    return torch.stack([w0, m2], dim=1).cpu().numpy().astype(np.int32)
+
+
+# the certainty band of _classify_counts: ~250 f32 ulps, covering the
+# <= 5-op rounding chain of the scan's rho plus Q's own f32 evaluation
+BAND = 3e-5
+
+
+def _classify_counts(d2, n_in, thresholds, n_members: int, um: float):
+    """Counting form of the -2 verdict for uniform masses.
+
+    Every sorted cumulative mass is the ladder value cum(i), so
+        rho(i) < thr  <=>  d2_(i) > Q_i,   Q_i = (cum(i)/((4/3)pi thr))^(2/3)
+                      <=>  count(d2 <= Q_i) <= i,
+    an order statistic, exact under any tie order. -2 at the first
+    eligible slot b1 = nMembers-2 is then two counts per threshold (and
+    slot b1+1 inside the ball). The full solve compares f32-rounded rho,
+    so each count is taken at Q*(1 +/- BAND) and a halo is called -2 only
+    when both edges agree; the rest defer to the full solve. Q is
+    computed on the host in numpy f32, so the CPU and CUDA runs compare
+    against the same bits."""
+    b1 = n_members - 2
+    lad = np.cumsum(np.full(n_members, np.float32(um), np.float32))
+    hi, lo = np.float32(1.0 + BAND), np.float32(1.0 - BAND)
+    two_thirds = np.float32(2.0 / 3.0)
+    m2 = torch.zeros_like(n_in)
+
+    def cnt(q):
+        return (d2 <= float(q)).sum(dim=1)
+
+    for t, thr in enumerate(np.asarray(thresholds, np.float32)):
+        q1 = (lad[b1] / (FOUR_THIRDS_PI * thr)) ** two_thirds
+        q2 = (lad[b1 + 1] / (FOUR_THIRDS_PI * thr)) ** two_thirds
+        c1, c2 = cnt(q1 * hi), cnt(q2 * hi)
+        is_m2 = ((c1 <= b1) & (c2 <= b1 + 1) & (c1 == cnt(q1 * lo))
+                 & (c2 == cnt(q2 * lo)) & (n_in >= n_members))
+        m2 = m2 | (is_m2.long() << t)
+    return m2
+
+
+def _classify_prefix(d2, mass, kk: int):
+    """Ascending kk-nearest (d2, mass) prefix of unsorted hit lists (pad
+    slots carry d2=+inf, mass 0). torch.topk leaves the order of equal
+    values open, so the kk picks are put back in slot order and sorted
+    stably: ties below the kk-th value come out the same on every
+    device."""
+    _, pick = torch.topk(d2, kk, dim=1, largest=False, sorted=False)
+    pick, _ = torch.sort(pick, dim=1)
+    d2k, o = torch.sort(torch.gather(d2, 1, pick), dim=1, stable=True)
+    return d2k, torch.gather(mass, 1, torch.gather(pick, 1, o))
+
+
+def _classify_verdict(d2k, mk, n_in, thresholds, n_members: int):
+    """The -2 verdict over an ascending kk-prefix (the scan's rule on its
+    first slots, K2 for the cumulative mass). Ties at the decision slots
+    (nMembers-2, -1, and the next) defer: the full solve may order equal
+    d2 differently."""
+    B, kk = d2k.shape
+    cum = seq_cumsum(mk)
+    rho = cum / (float(FOUR_THIRDS_PI) * (d2k * sqrt_rn(d2k)))
+    slot = torch.arange(kk, device=d2k.device)[None, :]
+    rho_next = torch.cat([rho[:, 1:], torch.full((B, 1), torch.inf,
+                                                 device=d2k.device)], dim=1)
+    b1 = n_members - 2
+    m2 = torch.zeros_like(n_in)
+    if b1 + 2 > kk - 1:                 # window too short to decide -2
+        return m2
+    no_tie = ((d2k[:, b1] != d2k[:, b1 + 1])
+              & (d2k[:, b1 + 1] != d2k[:, b1 + 2]))
+    for t, thr in enumerate(np.asarray(thresholds, np.float32)):
+        thr = float(thr)
+        pair_ok = ((rho < thr) & (rho_next < thr)
+                   & (slot + 1 < n_in[:, None]) & (slot >= b1))
+        found, jstar = first_true(pair_ok)
+        m2 = m2 | ((found & (jstar == b1) & no_tie).long() << t)
+    return m2
+
+
+# --survey auto-gate (survey=None): catalogs below SURVEY_MIN_G halos skip
+# the pre-pass; above it a SURVEY_SAMPLE-halo classify runs first and the
+# full pre-pass only proceeds when >= SURVEY_FRAC of the sample resolves
+SURVEY_MIN_G = 1 << 15
+SURVEY_SAMPLE = 1024
+SURVEY_FRAC = 0.25
+
+
+def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
+                thresholds, auto: bool, apply) -> int:
+    """The sort-free -1/-2 pre-pass over the live halos at their first
+    ladder radii. ``apply(part, packed)`` takes each dispatch's
+    _classify_stage block and returns how many halos it resolved; with
+    ``auto`` a sample decides whether the rest is classified. Returns
+    the number of halos resolved."""
+    if live.size < SURVEY_MIN_G and auto:
+        return 0
+    dev = grid.device
+
+    def run(idx, rads):
+        total = 0
+        if idx.size == 0:
+            return total
+        level, S = _pick_level_span(grid, float(rads.max()))
+        for lo, part in _dispatch_chunks(idx, K):
+            packed = _classify_stage(
+                grid, level, K, S, n_members,
+                torch.as_tensor(centers[part], device=dev),
+                torch.as_tensor(rads[lo:lo + part.size], device=dev),
+                thresholds)
+            total += apply(part, packed)
+        return total
+
+    start = n_res = 0
+    if auto:
+        ns = min(SURVEY_SAMPLE, live.size)
+        n_res = run(live[:ns], radii[:ns])
+        start = ns if n_res >= SURVEY_FRAC * ns else live.size
+    return n_res + run(live[start:], radii[start:])
 
 
 @dataclass
@@ -178,6 +334,7 @@ class SolveResult:
     d2cut: np.ndarray   # (G,) f32: d2 of the (j-1)-th sorted particle
     vcm: np.ndarray     # (G,3) f32: filled by the member pass
     kcap: np.ndarray | None = None  # (G,) i64 capacity that resolved it
+    n_survey: int = 0   # halos the survey pre-pass resolved
 
 
 def _k_limit(grid) -> int:
@@ -234,109 +391,15 @@ def _foot_stage(grid: CellGrid, level: int, S: int, centers, radii):
 
 def solve_rvir(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,
                thr: float, n_members: int = 8,
-               k0_cap: int = 4096) -> SolveResult:
-    """Solve R_Delta for every halo (batched, staged capacity escalation)."""
-    G = centers.shape[0]
-    dev = grid.device
-    period = grid.period_np()
-    centers = np.asarray(centers, np.float32)
-    rgtp = np.asarray(rgtp, np.float32)
+               k0_cap: int = 4096, survey: bool | None = None) -> SolveResult:
+    """Solve R_Delta for every halo (batched, staged capacity escalation):
+    multi.solve_rvir_multi at the one threshold ``thr``, whose docstring
+    says what ``survey`` does."""
+    from .multi import solve_rvir_multi   # multi builds on this module
 
-    code = np.zeros(G, np.int32)
-    mvir = np.zeros(G, np.float32)
-    rvir = np.zeros(G, np.float32)
-    jout = np.zeros(G, np.int32)
-    d2cut = np.zeros(G, np.float32)
-    kcap = np.full(G, k0_cap, np.int64)
-    resolved = np.zeros(G, bool)
-
-    kmax, _ = rvir_ladder(rgtp, period)
-    zero_iter = kmax == 0                 # loop never entered -> -3
-    code[zero_iter] = -3
-    mvir[zero_iter] = -3.0
-    rvir[zero_iter] = -3.0
-    resolved |= zero_iter
-
-    cur_k = np.ones(G, np.int32)          # ladder exponent (first gather k=1)
-    cur_cap = np.full(G, k0_cap, np.int64)
-    minus1_open = np.ones(G, bool)        # -1 check still undecided
-    kl = _k_limit(grid)
-    k_cap_max = max(2 * kl, k0_cap)
-
-    def apply_round(part, ints, flts, k_now, cap_now):
-        """One round of the reference's regrow decisions (kd2.c:745-839)."""
-        n_in, jstar = ints[:, 0], ints[:, 1]
-        found = ints[:, 2].astype(bool)
-        ovf = ints[:, 3].astype(bool)
-        o_mvir, o_d2c = flts[:, 0], flts[:, 1]
-
-        cur_k[part] = np.minimum(k_now, kmax[part])
-        at_cap_k = cur_k[part] >= kmax[part]
-        # -1: first ladder radius holds < nMembers (kd2.c:772-778);
-        # decidable negative at any capacity, positive only w/o overflow
-        is_m1 = minus1_open[part] & ~ovf & (n_in < n_members)
-        minus1_open[part[n_in >= n_members]] = False
-
-        ok = ~ovf                           # resolutions need no overflow
-        is_m2 = ok & found & (jstar == n_members - 2) & ~is_m1
-        is_succ = ok & found & (jstar > n_members - 2) & ~is_m1
-        is_m3 = ok & ~found & at_cap_k & ~is_m1 & ~minus1_open[part]
-
-        for mask, c in ((is_m1, -1), (is_m2, -2), (is_m3, -3)):
-            idx = part[mask]
-            code[idx] = c
-            mvir[idx] = float(c)
-            rvir[idx] = float(c)
-            resolved[idx] = True
-        kcap[part] = np.maximum(kcap[part], int(cap_now))
-        idx = part[is_succ]
-        code[idx] = 0
-        mvir[idx] = o_mvir[is_succ]
-        rvir[idx] = rvir_reference_bits(o_mvir[is_succ], thr)
-        jout[idx] = jstar[is_succ]
-        d2cut[idx] = o_d2c[is_succ]
-        resolved[idx] = True
-
-        rest = ~(is_m1 | is_m2 | is_succ | is_m3)
-        # overflow: more capacity, same radius (smGrowList, smooth2.c:49-55)
-        grow_cap = rest & ovf
-        cur_cap[part[grow_cap]] = min(int(cap_now) * 4, k_cap_max)
-        # nothing found, ladder not exhausted: grow the ball DK rungs and
-        # presize capacity from the observed density
-        grow_ball = rest & ~ovf & ~at_cap_k
-        gi = part[grow_ball]
-        cur_k[gi] = np.minimum(cur_k[gi] + DK, kmax[gi])
-        vol_ratio = int(np.ceil(np.float64(1.2) ** (3 * DK)))
-        est = (n_in[grow_ball].astype(np.int64) + 64) * vol_ratio
-        cur_cap[gi] = np.maximum(cur_cap[gi], np.minimum(
-            2 ** np.ceil(np.log2(np.maximum(est, 1))).astype(np.int64),
-            k_cap_max))
-
-    rnd = 0
-    while not resolved.all():
-        rnd += 1
-        if rnd > 200:
-            raise RuntimeError("solver failed to converge (escalation runaway)")
-        live = np.nonzero(~resolved)[0]
-        if rnd > 1:
-            # unify the capacity tier across a tail that fits one dispatch;
-            # otherwise only within a x16 band of the largest cap
-            capu = cur_cap[live].max()
-            if live.size <= _chunk_for(int(min(capu, kl)), SOLVE_SLOT_BUDGET):
-                cur_cap[live] = capu
-            else:
-                cur_cap[live[cur_cap[live] * 16 > capu]] = capu
-        for capacity in np.unique(cur_cap[live]):
-            sel = live[cur_cap[live] == capacity]
-            K = int(min(capacity, kl))
-            k_eff = np.minimum(cur_k[sel], kmax[sel])
-            radii = ladder_radius(rgtp[sel], k_eff)
-            level, S = _pick_level_span(grid, float(radii.max()))
-            for lo, part in _dispatch_chunks(sel, K):
-                c_dev = torch.as_tensor(centers[part], device=dev)
-                r_dev = torch.as_tensor(radii[lo:lo + part.size], device=dev)
-                ints, flts = _solve_stage(grid, level, K, S, n_members,
-                                          c_dev, r_dev, thr)
-                apply_round(part, ints, flts, k_eff[lo:lo + part.size], K)
-    return SolveResult(code=code, mvir=mvir, rvir=rvir, j=jout, d2cut=d2cut,
-                       vcm=np.zeros((G, 3), np.float32), kcap=kcap)
+    r = solve_rvir_multi(grid, centers, rgtp, [thr], n_members, k0_cap,
+                         survey)
+    return SolveResult(code=r.code[0], mvir=r.mvir[0], rvir=r.rvir[0],
+                       j=r.j[0], d2cut=r.d2cut[0],
+                       vcm=np.zeros((centers.shape[0], 3), np.float32),
+                       kcap=r.kcap, n_survey=r.n_survey)

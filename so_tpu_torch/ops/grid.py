@@ -6,7 +6,8 @@ and one CSR ``starts`` array per level maps cell -> row range. The grid
 always carries the transposed (8, N + chunk) slab payload that kernel K1
 reads (rows x, y, z, mass, vx, vy, vz, meta; meta = species | mark << 4),
 and nothing else per particle: the payload is a bit-exact encoding of
-pos/mass/vel/ptype/mark, served back by the ``*_a()`` accessors.
+pos/mass/vel/ptype/mark, served back by the ``*_a()`` accessors. Particle
+potentials (-pot) are kept beside it, in sorted order, only when given.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class CellGrid:
     chunk: int = CHUNK        # slab chunk: payload tail pad, K1 block width
     uniform_mass: float | None = None  # the single f32 mass value when
     #                           every particle's mass is bit-identical
+    phi: torch.Tensor | None = None    # (N,) f32 sorted potentials, or None
 
     @property
     def n(self) -> int:
@@ -143,7 +145,7 @@ def _level_starts(code_s: torch.Tensor, m: int) -> tuple:
     return tuple(starts)
 
 
-def build_grid(pos, mass, vel=None, ptype=None, mark=None,
+def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                period=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0),
                m: int | None = None, *, device) -> CellGrid:
     """Build the grid from host particle arrays on ``device`` ("cuda" or
@@ -180,8 +182,10 @@ def build_grid(pos, mass, vel=None, ptype=None, mark=None,
     starts = _level_starts(code[perm], m)
     soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],
                        mark[perm], chunk=chunk)
+    phi_s = (None if phi is None else
+             torch.as_tensor(np.asarray(phi, np.float32), device=device)[perm])
     return CellGrid(m, lo, period, soa8t, perm, starts, chunk=chunk,
-                    uniform_mass=um)
+                    uniform_mass=um, phi=phi_s)
 
 
 def grid_from_arrays(m: int, lo, period, soa8t, orig_idx, starts,

@@ -1,13 +1,16 @@
-"""Named wall-clock phases (port of so_tpu/profiling.py PhaseTimer).
+"""Named wall-clock phases and the --profile trace (port of
+so_tpu/profiling.py).
 
 PyTorch returns before the card finishes, so on a CUDA device every phase
 edge synchronizes: a phase's time then holds the device work it issued,
-not only the host's enqueue.
+not only the host's enqueue. profile_trace takes the place of
+jax.profiler.trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -48,3 +51,25 @@ class PhaseTimer:
                 rate = f"  ({items[name] / dt:,.0f}/s)"
             out.write(f"  {name:<24s} {dt:8.3f}s{rate}\n")
         out.write(f"  {'total':<24s} {total:8.3f}s\n")
+
+
+TRACE_FILE = "so_tpu_torch_trace.json"
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str | None, device: torch.device | None = None):
+    """A torch.profiler trace of the enclosed run (host ops, plus the
+    card's kernels on a CUDA device), written to ``logdir`` as a Chrome
+    trace (chrome://tracing, Perfetto). No-op when logdir is None."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))

@@ -4,7 +4,9 @@ Every test needs a CUDA device and skips without one. Each kernel is
 held against its plain torch version on the same CUDA tensors, and
 against the CPU run of that plain version: all must agree bit for bit
 (the kernels are built with -fmad=false and use rintf/__fdiv_rn, the
-plain versions run one elementwise torch op at a time).
+plain versions run one elementwise torch op at a time). The paths that
+call them (the pipeline, -pot recentring, the multi-threshold solve and
+the survey pre-pass) must give the same bits on the card and the CPU.
 
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -q \
@@ -186,3 +188,64 @@ def test_cuda_sqrt_and_div_are_correctly_rounded(dev):
                       (ta * tb, a * b), (ta - tb, a - b)):
         np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
                                       want.view(np.int32))
+
+
+def test_recenter_cuda_matches_cpu(dev):
+    """-pot recentring (K1 on the phi payload, unsorted argmin) picks the
+    same particles on the card and on the CPU, escalation included."""
+    from so_tpu_torch.engine.recenter import recenter_most_bound
+
+    rng, pos, mass, vel, ptype, mark = _box(21, 30000)
+    phi = rng.permutation(pos.shape[0]).astype(np.float32) * -1e-4  # distinct
+    grid, cgrid = (build_grid(pos, mass, vel=vel, phi=phi, ptype=ptype,
+                              mark=mark, device=d) for d in (dev, "cpu"))
+    centers = rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
+    centers[:8] = 0.0
+    rgtp = rng.uniform(0.005, 0.08, 64).astype(np.float32)
+    n0 = slab_gather.launches
+    got = recenter_most_bound(grid, centers, rgtp, k0_cap=256)
+    assert slab_gather.launches > n0 + 1          # escalated at least once
+    want = recenter_most_bound(cgrid, centers, rgtp, k0_cap=256)
+    assert got.tobytes() == want.tobytes()
+    assert (got != centers).any(axis=1).sum() > 32
+
+
+def test_multi_and_survey_cuda_match_cpu(dev):
+    """The multi-threshold solve, and the single solve with the survey
+    pre-pass forced, give the same bits on the card and on the CPU and
+    equal the plain single solve per threshold."""
+    from so_tpu_torch.engine import solver
+    from so_tpu_torch.engine.multi import solve_rvir_multi
+
+    thresholds = (178.0, 500.0)
+    for uniform in (True, False):
+        rng, pos, mass, _, _, _ = _box(5 + uniform, 30000)
+        mass = (np.full_like(mass, np.float32(1.0 / mass.size)) if uniform
+                else (mass / mass.size).astype(np.float32))
+        grid = build_grid(pos, mass, device=dev)
+        cgrid = build_grid(pos, mass, device="cpu")
+        centers = rng.uniform(-0.5, 0.5, (96, 3)).astype(np.float32)
+        centers[:16] = rng.normal(scale=0.02, size=(16, 3))
+        rgtp = rng.uniform(0.002, 0.06, 96).astype(np.float32)
+        k0, s0 = slab_gather.launches, seqsum.launches
+        got = solve_rvir_multi(grid, centers, rgtp, thresholds, survey=True)
+        assert slab_gather.launches > k0
+        assert uniform or seqsum.launches > s0
+        want = solve_rvir_multi(cgrid, centers, rgtp, thresholds,
+                                survey=True)
+        assert {0, -1, -2} <= set(got.code.ravel().tolist())
+        for f in ("code", "mvir", "rvir", "j", "d2cut"):
+            assert getattr(got, f).tobytes() == getattr(want, f).tobytes()
+        for t, thr in enumerate(thresholds):
+            single = solver.solve_rvir(grid, centers, rgtp, thr,
+                                       survey=False)
+            for f in ("code", "mvir", "rvir", "j", "d2cut"):
+                assert getattr(got, f)[t].tobytes() == \
+                    getattr(single, f).tobytes(), f
+        packed = solver._classify_stage(
+            grid, 1, 4096, 5, 8, torch.as_tensor(centers, device=dev),
+            torch.as_tensor(rgtp, device=dev), np.float32(thresholds))
+        cpacked = solver._classify_stage(
+            cgrid, 1, 4096, 5, 8, torch.as_tensor(centers),
+            torch.as_tensor(rgtp), np.float32(thresholds))
+        np.testing.assert_array_equal(packed, cpacked)

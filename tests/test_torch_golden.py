@@ -2,8 +2,7 @@
 
 The scenarios, inputs and comparisons of tests/test_golden.py, run with
 ``--device cpu``: catalogs to float tolerance, .sogrp/.sosub/.soign
-exactly, .sogtp field by field. -pot is not ported yet (ROADMAP.md
-section 1, item 9): its scenario must fail, and the CLI says why.
+exactly, .sogtp field by field.
 """
 
 import os
@@ -20,19 +19,9 @@ from util_compare import (compare_exact_file, compare_file,  # noqa: E402
 
 GOLDEN_DIR = os.path.join(HERE, "goldens")
 EXACT_FILES = {"sogrp", "sosub", "soign"}
-NOT_PORTED = {"flags_pot": "-pot is not ported yet (ROADMAP.md section 1, "
-                           "item 9)"}
 
 
-def _cases():
-    for name in sorted(SCENARIOS):
-        marks = ([pytest.mark.xfail(strict=True, raises=SystemExit,
-                                    reason=NOT_PORTED[name])]
-                 if name in NOT_PORTED else [])
-        yield pytest.param(name, marks=marks)
-
-
-@pytest.mark.parametrize("name", _cases())
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_torch_golden(name, tmp_path):
     from so_tpu_torch.cli import main
 
@@ -61,14 +50,20 @@ def test_torch_golden(name, tmp_path):
     assert not errs, "\n".join(errs[:10])
 
 
-def test_pot_refused_with_roadmap_item(tmp_path, capsys):
+@pytest.mark.parametrize("order", ["pot_first", "stat_first"])
+def test_pot_with_stat_is_usage_error(tmp_path, capsys, order):
+    """-pot and -stat exclude each other in either order (so.c: usage())."""
     from so_tpu_torch.cli import main
 
     workdir = str(tmp_path)
-    args = generate_inputs("flags_pot", workdir)
+    args = generate_inputs("basic", workdir)
+    pair = ["-pot", "-stat", f"{workdir}/x.stat"]
+    if order == "stat_first":
+        pair = pair[1:] + pair[:1]
     with pytest.raises(SystemExit) as e:
         main(["-i", f"{workdir}/cat.gtp", "-o", f"{workdir}/got",
-              "--tipsy", f"{workdir}/snap.bin", "--device", "cpu"] + args)
+              "--tipsy", f"{workdir}/snap.bin", "--device", "cpu"]
+             + args + pair)
     assert e.value.code == 1
-    err = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "not yet in so_tpu_torch" in err and "ROADMAP.md" in err
+    assert "USAGE" in capsys.readouterr().err
+    assert not os.path.exists(f"{workdir}/got.sovcirc")

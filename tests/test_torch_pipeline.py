@@ -23,6 +23,7 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 
 from fixtures import make_clumpy_box  # noqa: E402
+from scenarios import generate_inputs  # noqa: E402
 from test_torch_solver import d2_forms  # noqa: E402
 
 from so_tpu.engine import SOParams as JaxParams, run_so as jax_run_so  # noqa: E402
@@ -144,16 +145,26 @@ def test_run_so_matches_so_tpu(uniform, monkeypatch):
     assert got.stats == want.stats
 
 
-def test_unported_options_raise():
-    ps, catalog = _box(True)
-    for kw in (dict(b_pot=True), dict(checkpoint="x.npz"),
-               dict(profile_dir="trace"), dict(survey=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_so(ps, catalog(), SOParams(device="cpu", **kw))
+@pytest.mark.parametrize("option", [["--mesh", "2x1"], ["--distributed"]])
+def test_unported_options_raise(option, tmp_path, capsys):
+    """The multi-device options exit 1 naming their ROADMAP.md item."""
+    from so_tpu_torch.cli import main
+
+    d = str(tmp_path)
+    args = generate_inputs("basic", d)
+    with pytest.raises(SystemExit) as e:
+        main(["-i", d + "/cat.gtp", "-o", d + "/got", "--tipsy",
+              d + "/snap.bin", "--device", "cpu"] + args + option)
+    assert e.value.code == 1
+    err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert err == (f"{option[0]} is not yet in so_tpu_torch (ROADMAP.md "
+                   "section 1, item 16)")
+    assert not os.path.exists(d + "/got.sovcirc")
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A full CPU run through the port's CLI leaves jax unimported."""
+    """Full CPU runs through the port's CLI, plain and with -pot --deltas
+    --survey --checkpoint, leave jax unimported."""
     code = f"""
 import sys
 sys.path.insert(0, {HERE!r})
@@ -161,10 +172,12 @@ import so_tpu_torch.cli
 from scenarios import generate_inputs
 args = generate_inputs("errors", {str(tmp_path)!r})
 d = {str(tmp_path)!r}
-rc = so_tpu_torch.cli.main(["-i", d + "/cat.gtp", "-o", d + "/got",
-                            "--tipsy", d + "/snap.bin", "--device", "cpu"]
-                           + args)
-assert rc == 0
+base = ["-i", d + "/cat.gtp", "--tipsy", d + "/snap.bin", "--device", "cpu"]
+assert so_tpu_torch.cli.main(base + ["-o", d + "/got"] + args) == 0
+assert so_tpu_torch.cli.main(base + ["-o", d + "/multi", "-pot", "--deltas",
+                                     "178,500", "--survey"] + args) == 0
+assert so_tpu_torch.cli.main(base + ["-o", d + "/ck", "--checkpoint",
+                                     d + "/state.npz"] + args) == 0
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("JAX_FREE")
 """
@@ -175,3 +188,5 @@ print("JAX_FREE")
     assert r.returncode == 0, r.stderr[-2000:]
     assert "JAX_FREE" in r.stdout
     assert os.path.exists(tmp_path / "got.sogrp")
+    assert os.path.exists(tmp_path / "multi.d500.sogrp")
+    assert os.path.exists(tmp_path / "state.npz")
