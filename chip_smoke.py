@@ -12,8 +12,11 @@ script exits nonzero:
      shapes: K1 (slab gather) at B=4096, K=4096, chunk 256 and 128, with
      0, 1, 2 and 5 float channels, on the 2^21-particle payload; K2 (serial
      f32 row cumsum) at (16384, 4096), the solve scan's shape, and at
-     (16384, 16), the survey classify prefix's. Equality is exact
-     (tolerance 0).
+     (16384, 16), the survey classify prefix's. K3 (run-level piece
+     gather) against its plain version and against K1 on the giant box
+     (below), B = 8 and 64 halos about the clump, K = 2^18 and 2^21, d2
+     only / mass / mass + meta + idx, with K1's time beside K3's.
+     Equality is exact (tolerance 0).
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
@@ -48,12 +51,22 @@ script exits nonzero:
      --checkpoint run done twice (the second resumes and writes the same
      bytes but for the headers' run time), and --profile (a
      torch.profiler Chrome trace).
+ 11. giant: scripts/compare_reference_giant.py's configuration (seed
+     515151: one r^-2 clump of 1.6e6 particles on 3.4e6 uniform ones, 4
+     giant centers on the clump and 60 small ones), run_so on "cuda" with
+     general, then uniform masses. K1 and K3 must run in both, K2 in the
+     general one; the 4 giant halos' code, Mvir and Rvir must match
+     tests/reference_oracle.py (rel 2e-5). Then the same configuration at
+     200,000 / 120,000 / 12 with gather.PIECE_K_MIN lowered to 2^12, so
+     K3 serves most dispatches, on "cuda" and "cpu": identical bits.
 
-Phases 4 and 7-10 each zero both kernels' launch counters before they
-start and fail unless both grew (9's card-against-CPU check runs after
-its count is read). The line before the last is a JSON
-object with one entry per kernel (launches summed over those phases); the
-last line is {"ok": true, "device": {...}}.
+Phases 4, 7-10 and each giant run zero every kernel's launch counter
+before they start and fail unless their kernels grew (9's
+card-against-CPU check runs after its count is read). The line before
+the last is a JSON object with one entry per kernel (launches summed
+over those phases; bounds from this run's inputs at the card's 3.35 TB/s
+and 67 TFLOP/s f32); the last line is {"ok": true, "device": {...}}.
+The card's name and power limit are printed by phase 1.
 """
 
 import json
@@ -71,7 +84,88 @@ POT_WARM_RUNS = 3  # timed -pot runs after its cold run
 DELTAS = (200.0, 340.0, 667.0)
 MULTI_ROUNDS = 3   # timed multi-vs-singles rounds after the cold multi run
 SURVEY_ROUNDS = 3  # timed rounds of the three survey modes after a warm-up
-LAUNCHES = {"K1": 0, "K2": 0}   # kernel launches summed over the paths
+GIANT_SEED = 515151
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}   # launches summed over the paths
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time for the bytes a function must
+    move and the f32 operations it must do, at the card's peak rates."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def make_box(rng, n_particles, n_halos):
+    """Clustered box: half the mass in r^-2 halos, half uniform.
+    (A copy of bench.py:35-59, so this script needs nothing of the JAX
+    side.)"""
+    import numpy as np
+
+    n_clumped = n_particles // 2
+    n_bg = n_particles - n_clumped
+    # halo sizes: power-law-ish distribution over the requested halo count
+    sizes = rng.pareto(1.5, n_halos) + 1.0
+    sizes = np.maximum((sizes / sizes.sum() * n_clumped).astype(np.int64), 24)
+    centers = rng.uniform(-0.5, 0.5, (n_halos, 3)).astype(np.float32)
+    # rmax such that the clump is a genuine overdensity (edge density well
+    # above the Delta=178 threshold for a particle mass of 1/N)
+    rmax = (0.0012 * sizes.astype(np.float64) ** (1 / 3)).astype(np.float32)
+
+    chunks = [rng.uniform(-0.5, 0.5, (n_bg, 3)).astype(np.float32)]
+    for c, n, rm in zip(centers, sizes, rmax):
+        r = rm * rng.uniform(0.001, 1.0, n)
+        u = rng.normal(size=(n, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        p = c[None, :] + (r[:, None] * u).astype(np.float32)
+        chunks.append(((p + 0.5) % 1.0 - 0.5).astype(np.float32))
+    pos = np.concatenate(chunks)
+    n_tot = pos.shape[0]
+    mass = np.full(n_tot, 1.0 / n_tot, np.float32)
+    vel = np.zeros((n_tot, 3), np.float32)
+    rgtp = np.maximum(rmax, 0.001).astype(np.float32)
+    return pos, mass, vel, centers, rgtp
+
+
+def make_giant_box(rng, n_bg, n_clump):
+    """One r^-2 mega-clump holding half the box mass + uniform bg.
+    (A copy of scripts/compare_reference_giant.py:61-72.)"""
+    import numpy as np
+
+    c = np.array([0.1, -0.05, 0.2], np.float32)
+    rmax = 0.08
+    r = rmax * rng.uniform(0.0005, 1.0, n_clump)
+    u = rng.normal(size=(n_clump, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    clump = ((c[None, :] + (r[:, None] * u).astype(np.float32) + 0.5)
+             % 1.0 - 0.5).astype(np.float32)
+    bg = rng.uniform(-0.5, 0.5, (n_bg, 3)).astype(np.float32)
+    pos = np.concatenate([bg, clump])
+    return pos, c, rmax
+
+
+def giant_config(n_bg=3_400_000, n_clump=1_600_000, n_small=60):
+    """scripts/compare_reference_giant.py's configuration (main, :148-182):
+    positions, the 4 giant + n_small centers, rgtp, catalog masses and
+    the general and uniform particle masses, all from GIANT_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(GIANT_SEED)
+    pos, c, _ = make_giant_box(rng, n_bg, n_clump)
+    n = pos.shape[0]
+    giant_c = np.stack([c, c + np.float32(0.004), c - np.float32(0.003),
+                        c + np.array([0.006, -0.002, 0.001], np.float32)])
+    small_c = rng.uniform(-0.45, 0.45, (n_small, 3)).astype(np.float32)
+    centers = np.concatenate([giant_c, small_c]).astype(np.float32)
+    rgtp = np.concatenate([np.full(4, 0.02, np.float32),
+                           rng.uniform(0.01, 0.05, n_small)
+                           .astype(np.float32)])
+    cat_mass = rng.uniform(0.001, 1.0, centers.shape[0]).astype(np.float32)
+    mass_u = np.full(n, np.float32(1.0 / n), np.float32)
+    mass_g = rng.uniform(0.5, 1.5, n).astype(np.float32) / np.float32(n)
+    return dict(pos=pos, centers=centers, rgtp=rgtp, cat_mass=cat_mass,
+                masses=(("general", mass_g), ("uniform", mass_u)))
 
 
 def log(msg):
@@ -141,10 +235,23 @@ def phase_build():
     log(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
 
 
+def gather_bound(cnt, desc, B, K, chans, want_idx):
+    """bound() of one K1/K3 call: each candidate row inside its run read
+    once (3 position rows and the rows its channels need), the int32
+    descriptors read once, every output slot written once; ~23 f32
+    operations per candidate (three min-image axes, the sum, the test)."""
+    from so_tpu_torch.ops.slab_gather import CHANNEL_ROWS
+
+    rows = len({0, 1, 2} | {CHANNEL_ROWS[c] for c in chans}
+               | ({3} if {"mvx", "mvy", "mvz"} & set(chans) else set()))
+    cand = int(cnt.sum(dim=1).clamp(max=K).sum())
+    nbytes = (4 * cand * rows + sum(4 * d.numel() for d in desc)
+              + 4 * B * K * (1 + len(chans) + int(want_idx)))
+    return bound(nbytes, 23 * cand)
+
+
 def make_standard_box():
     import numpy as np
-
-    from bench import make_box
 
     t0 = time.perf_counter()
     pos, mass, vel, centers, rgtp = make_box(np.random.default_rng(SEED),
@@ -198,13 +305,15 @@ def phase_kernels(box):
                 err = max(err, max_abs_err(a, b))
             ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*args), 20)
             plain_ms = cuda_ms(lambda: slab_gather.slab_gather_plain(*args), 3)
+            bms, by = gather_bound(cnt, desc[:3], B, K, chans, want_idx)
             tag = f"chunk={chunk} nch={len(chans)} idx={int(want_idx)}"
             log(f"[K1] B={B} K={K} level={level} S={S} {tag}: exact, "
                 f"max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} "
-                f"ms ({int((total > K).sum())} rows past K)")
-            rows[(chunk, len(chans))] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain_ms, shape=
-                                             f"B={B} K={K} {tag}")
+                f"ms bound {bms:.4f} ms ({by}) ({int((total > K).sum())} "
+                "rows past K)")
+            rows[(chunk, len(chans))] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, shape=f"B={B} K={K} {tag}")
     k1 = rows[(256, 1)]       # the general-mass solve stage's shape
 
     x = torch.rand((16384, 4096), generator=torch.Generator(device=dev)
@@ -216,10 +325,11 @@ def phase_kernels(box):
     err = max_abs_err(got, want)
     ms = cuda_ms(lambda: seqsum.seq_cumsum(x), 5)
     plain_ms = cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 1)
+    bms, by = bound(8 * x.numel(), x.numel())
     log(f"[K2] (16384, 4096): exact, max_abs_err {err} kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms")
-    k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-              shape="B=16384 K=4096")
+        f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by})")
+    k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+              bound_by=by, library_ms=None, shape="B=16384 K=4096")
     # the survey classify prefix: K2 over (B, 16) nearest-hit masses
     x = torch.rand((16384, 16), generator=torch.Generator(device=dev)
                    .manual_seed(SEED + 1), device=dev)
@@ -230,9 +340,91 @@ def phase_kernels(box):
     log(f"[K2] (16384, 16): exact, max_abs_err {max_abs_err(got, want)} "
         f"kernel {cuda_ms(lambda: seqsum.seq_cumsum(x), 20):.4f} ms plain "
         f"{cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 3):.4f} ms")
+    # a giant tier's rows: (8, 2^23), against the plain version on the CPU
+    # (on the card the plain version is 2^23 column steps)
+    x = torch.rand((8, 1 << 23), generator=torch.Generator(device=dev)
+                   .manual_seed(SEED + 2), device=dev)
+    got = seqsum.seq_cumsum(x)
+    t0 = time.perf_counter()
+    want = seqsum.seq_cumsum_plain(x.cpu())
+    cpu_s = time.perf_counter() - t0
+    assert_same_bits("K2 (8, 2^23)", got.cpu(), want)
+    bms, by = bound(8 * x.numel(), x.numel())
+    log(f"[K2] (8, 2^23): exact against the CPU plain version ({cpu_s:.3f}"
+        f" s on the host); kernel {cuda_ms(lambda: seqsum.seq_cumsum(x), 3):.4f}"
+        f" ms, bound {bms:.4f} ms ({by})")
     del grid, x, got, want
     torch.cuda.empty_cache()
     return k1, k2
+
+
+def phase_k3(giant):
+    """K3 against its plain version (tolerance 0) and against K1 (bit for
+    bit) on the giant box, at giant-tier shapes: B = 8 and 64 halos about
+    the clump, K = 2^18 and 2^21, d2 only, mass, mass + meta + idx."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine.solver import _pick_level_span
+    from so_tpu_torch.ops import piece_gather, slab_gather
+    from so_tpu_torch.ops.gather import cell_ranges
+    from so_tpu_torch.ops.grid import build_grid
+
+    dev = torch.device("cuda")
+    grid = build_grid(giant["pos"], giant["masses"][0][1], device=dev)
+    rng = np.random.default_rng(GIANT_SEED + 1)
+    rows = {}
+    # K=2^18 at radii 0.002-0.013 about the clump's center overflows
+    # (340,000-563,000 candidate slots: a first-rung dispatch); K=2^21 at
+    # 0.08-0.2 holds 1.63-1.93 million (the clump and some background)
+    for K, (r_lo, r_hi) in ((1 << 18, (0.002, 0.013)),
+                            (1 << 21, (0.08, 0.2))):
+        for B in (8, 64):
+            c = torch.as_tensor((giant["centers"][0] + rng.normal(
+                scale=0.003, size=(B, 3))).astype(np.float32), device=dev)
+            r_np = rng.uniform(r_lo, r_hi, B).astype(np.float32)
+            r = torch.as_tensor(r_np, device=dev)
+            level, S = _pick_level_span(grid, float(r_np.max()))
+            st, cnt, q, total = cell_ranges(grid, level, c, r, r * r, S,
+                                            align=grid.chunk)
+            pdesc = piece_gather.piece_descriptors(st, cnt, q, K, grid.chunk)
+            cdesc = slab_gather.chunk_descriptors(st, cnt, q, K, grid.chunk)
+            for chans, want_idx in (((), False), (("mass",), False),
+                                    (("mass", "meta"), True)):
+                tail = (c, grid.period, r * r, K, grid.chunk, chans, want_idx)
+                a3 = (grid.soa8t, *pdesc, *tail)
+                a1 = (grid.soa8t, *cdesc, *tail)
+                got = piece_gather.piece_gather_rows(*a3)
+                plain = piece_gather.piece_gather_plain(*a3)
+                k1 = slab_gather.slab_gather_rows(*a1)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, a, p, b in zip(("d2", "channels", "idx"), got,
+                                         plain, k1):
+                    if a is None:
+                        continue
+                    assert_same_bits(f"K3 {name}", a, p)
+                    assert_same_bits(f"K3 {name} against K1", a, b)
+                    err = max(err, max_abs_err(a, p))
+                del got, plain, k1
+                ms = cuda_ms(lambda: piece_gather.piece_gather_rows(*a3), 5)
+                k1_ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*a1), 5)
+                plain_ms = cuda_ms(
+                    lambda: piece_gather.piece_gather_plain(*a3), 1)
+                bms, by = gather_bound(cnt, pdesc[:5], B, K, chans, want_idx)
+                tag = f"B={B} K={K} nch={len(chans)} idx={int(want_idx)}"
+                log(f"[K3] {tag} level={level} S={S}: equal to its plain "
+                    f"version and to K1, max_abs_err {err}; K3 {ms:.4f} ms, "
+                    f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({by}); {int((total > K).sum())} of {B} "
+                    "rows past K")
+                rows[(B, K, len(chans))] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None, k1_ms=k1_ms, shape=tag)
+                torch.cuda.empty_cache()
+    del grid
+    torch.cuda.empty_cache()
+    return rows[(8, 1 << 21, 1)]    # a general-mass giant solve dispatch
 
 
 def particles_and_catalog(box, species, seed):
@@ -240,8 +432,8 @@ def particles_and_catalog(box, species, seed):
     or masses from uniform(0.5, 1.5)/N split over gas/dark/star."""
     import numpy as np
 
-    from so_tpu.io.catalogs import GroupCatalog
-    from so_tpu.io.tipsy import ParticleSet, TipsyHeader
+    from so_tpu_torch.io.catalogs import GroupCatalog
+    from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader
 
     pos, mass, vel, centers, rgtp = box
     rng = np.random.default_rng(seed + 1)     # catalog masses, as bench.py
@@ -277,17 +469,28 @@ def run(ps, catalog, species, device, grid=None, **kw):
     return out, time.perf_counter() - t0
 
 
-def counted(tag, fn, *a):
-    """Run one path with both kernels' launch counters zeroed just before;
-    fail unless both grew; add them to LAUNCHES."""
-    from so_tpu_torch.ops import seqsum, slab_gather
+def zero_counts():
+    from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
 
-    slab_gather.launches = 0
-    seqsum.launches = 0
+    slab_gather.launches = seqsum.launches = piece_gather.launches = 0
+
+
+def read_counts():
+    from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
+
+    return dict(K1=slab_gather.launches, K2=seqsum.launches,
+                K3=piece_gather.launches)
+
+
+def counted(tag, fn, *a, need=("K1", "K2")):
+    """Run one path with every kernel's launch counter zeroed just before;
+    fail unless the path's kernels (``need``) grew; add the counts to
+    LAUNCHES."""
+    zero_counts()
     out = fn(*a)
-    counts = dict(K1=slab_gather.launches, K2=seqsum.launches)
+    counts = read_counts()
     log(f"[{tag}] launches: {counts}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in need) <= 0:
         raise AssertionError(f"{tag}: a kernel of the path never ran: "
                              f"{counts}")
     for k, v in counts.items():
@@ -317,14 +520,12 @@ def check_run(tag, out, n_halos):
 
 
 def phase_main_path(box):
-    from so_tpu.io.tipsy import DARK, GAS, STAR
-    from so_tpu_torch.ops import seqsum, slab_gather
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
 
     runs = [("uniform", (), SEED), ("species", (DARK, GAS, STAR), SEED)]
     inputs = [(tag, sp, *particles_and_catalog(box, sp, seed))
               for tag, sp, seed in runs]
-    slab_gather.launches = 0
-    seqsum.launches = 0
+    zero_counts()
     for tag, sp, ps, catalog in inputs:
         warm = []
         for rep in ["cold"] + [f"warm {i + 1}" for i in range(WARM_RUNS)]:
@@ -349,9 +550,9 @@ def phase_main_path(box):
             f"({n / med['R_Delta solve']:.0f} solves/s) phases "
             + ", ".join(f"{k} {v:.4f}" for k, v in med.items()
                         if k not in ("e2e", "R_Delta solve")))
-    counts = dict(K1=slab_gather.launches, K2=seqsum.launches)
+    counts = read_counts()
     log(f"[main] launches in the main-path runs: {counts}")
-    if min(counts.values()) <= 0:
+    if min(counts["K1"], counts["K2"]) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     return counts
 
@@ -384,7 +585,7 @@ def assert_runs_equal(tag, g, c, sp):
 def phase_gpu_vs_cpu(small):
     import numpy as np
 
-    from so_tpu.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from reference_oracle import oracle_rvir
@@ -414,8 +615,8 @@ def phase_gpu_vs_cpu(small):
 def phase_cli(small):
     import numpy as np
 
-    from so_tpu.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
-                                 TipsyHeader, write_tipsy)
+    from so_tpu_torch.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
+                                       TipsyHeader, write_tipsy)
 
     pos, mass, vel, centers, rgtp = small
     out = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_cli")
@@ -467,7 +668,7 @@ def phase_cli(small):
 
 def phase_pot(box, small):
     """-pot on the standard box (cold + warm runs), then CUDA vs CPU."""
-    from so_tpu.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
 
     sp = (DARK, GAS, STAR)
     ps, catalog = particles_and_catalog(box, sp, SEED)
@@ -502,7 +703,7 @@ def phase_multi(box):
     """run_so_multi at DELTAS against run_so per threshold, one grid."""
     import numpy as np
 
-    from so_tpu.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
     from so_tpu_torch.engine.pipeline import SOParams, run_so_multi
     from so_tpu_torch.ops.grid import build_grid
 
@@ -561,8 +762,6 @@ def phase_multi(box):
 def make_dense_box():
     """bench.py's dense box, with three-species masses beside its own."""
     import numpy as np
-
-    from bench import make_box
 
     t0 = time.perf_counter()
     pos, mass, _, centers, rgtp = make_box(np.random.default_rng(SEED),
@@ -656,8 +855,8 @@ def phase_cli_paths(small):
     masses and phi."""
     import numpy as np
 
-    from so_tpu.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
-                                 TipsyHeader, write_tipsy)
+    from so_tpu_torch.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
+                                       TipsyHeader, write_tipsy)
     from so_tpu_torch.cli import main as cli_main
     from so_tpu_torch.profiling import TRACE_FILE
 
@@ -749,6 +948,95 @@ def phase_cli_paths(small):
         raise AssertionError("--profile wrote an empty trace")
 
 
+def giant_inputs(giant, mass):
+    """(ParticleSet, catalog factory) of the giant box: dark matter only,
+    as scripts/compare_reference_giant.py writes its snapshot."""
+    import numpy as np
+
+    from so_tpu_torch.io.catalogs import GroupCatalog
+    from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader
+
+    pos, n, G = giant["pos"], giant["pos"].shape[0], giant["centers"].shape[0]
+    zeros = np.zeros(n, np.float32)
+    ps = ParticleSet(TipsyHeader(time=1.0, nbodies=n, ndim=3, nsph=0,
+                                 ndark=n, nstar=0), pos,
+                     np.zeros((n, 3), np.float32), mass, zeros, zeros)
+
+    def catalog():
+        return GroupCatalog(index=np.arange(1, G + 1, dtype=np.int32),
+                            pos=giant["centers"].copy(), rgtp=giant["rgtp"],
+                            gtp_mass=giant["cat_mass"], n_in_gtp=G,
+                            gtp_time=1.0)
+    return ps, catalog
+
+
+def phase_giant(giant):
+    """run_so on the giant box on "cuda", general then uniform masses, each
+    with every launch counter zeroed first: K1 and K3 must run in both, K2
+    in the general one; the 4 giant halos against the brute-force oracle
+    (tests/reference_oracle.py)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from reference_oracle import oracle_rvir
+
+    for tag, mass in giant["masses"]:
+        ps, catalog = giant_inputs(giant, mass)
+        torch.cuda.reset_peak_memory_stats()
+        need = ("K1", "K3") + (("K2",) if tag == "general" else ())
+        out, e2e = counted(f"giant {tag}", run, ps, catalog, (), "cuda",
+                           need=need)
+        codes = check_run(f"giant {tag}", out, catalog().n)
+        for h in range(4):
+            want = oracle_rvir(ps.pos, mass, giant["centers"][h],
+                               giant["rgtp"][h], (1.0, 1.0, 1.0), THR, 8)
+            got = [out.solve.code[h], out.solve.mvir[h], out.solve.rvir[h]]
+            if got[0] != want["code"] or any(
+                    abs(g - want[f]) > 2e-5 * abs(want[f])
+                    for g, f in zip(got[1:], ("mvir", "rvir"))):
+                raise AssertionError(f"giant {tag}: halo {h} {got} "
+                                     f"disagrees with the oracle {want}")
+        ph = out.phases
+        log(f"[giant {tag}] particles={ps.n} halos={catalog().n} "
+            f"ok/-1/-2/-3={codes}; 4 giant halos = oracle (code, Mvir, "
+            f"Rvir to 2e-5): j={out.solve.j[:4].tolist()}; largest solve "
+            f"K={int(out.solve.kcap.max())}; grid {ph['grid build']:.3f} s "
+            f"solve {ph['R_Delta solve']:.3f} s members + derived "
+            f"{ph['members + derived (fused)']:.3f} s conflicts "
+            f"{ph['conflict protocol']:.3f} s e2e {e2e:.3f} s; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del out
+
+
+def phase_giant_vs_cpu():
+    """The giant configuration at a CPU-sized scale, with PIECE_K_MIN
+    lowered so that K3 serves most dispatches: card and CPU give the same
+    bits, both mass variants."""
+    from so_tpu_torch.ops import gather
+
+    small = giant_config(200_000, 120_000, 12)
+    kmin = gather.PIECE_K_MIN
+    gather.PIECE_K_MIN = 1 << 12
+    try:
+        for tag, mass in small["masses"]:
+            ps, catalog = giant_inputs(small, mass)
+            zero_counts()
+            g, tg = run(ps, catalog, (), "cuda")
+            counts = read_counts()
+            c, tc = run(ps, catalog, (), "cpu")
+            if counts["K3"] <= 0:
+                raise AssertionError(f"giant vs cpu {tag}: K3 never ran")
+            pairs = assert_runs_equal(f"giant vs cpu {tag}", g, c, ())
+            log(f"[giant vs cpu {tag}] particles={ps.n} halos="
+                f"{catalog().n}, PIECE_K_MIN=2^12, launches {counts}: "
+                f"{len(pairs)} fields and all member lists bit-identical; "
+                f"largest solve K={int(g.solve.kcap.max())}; cuda {tg:.3f} "
+                f"s, cpu {tc:.3f} s")
+    finally:
+        gather.PIECE_K_MIN = kmin
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "so_tpu_torch")):
         sys.stderr.write("chip_smoke.py: run it from the root of a checkout "
@@ -776,11 +1064,11 @@ def main():
     timed("build", phase_build)
     box = timed("standard box", make_standard_box)
     k1, k2 = timed("kernels", phase_kernels, box)
+    giant = timed("giant box", giant_config)
+    k3 = timed("K3 kernel", phase_k3, giant)
     counts = timed("main path", phase_main_path, box)
     for k, v in counts.items():
         LAUNCHES[k] += v
-    from bench import make_box
-
     small = make_box(np.random.default_rng(SEED), 1 << 18, 2048)
     timed("gpu vs cpu", phase_gpu_vs_cpu, small)
     timed("cli", phase_cli, small)
@@ -792,8 +1080,13 @@ def main():
     timed("survey classify vs cpu", phase_survey_vs_cpu, dense)
     del dense
     timed("cli paths", counted, "cli paths", phase_cli_paths, small)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    timed("giant", phase_giant, giant)
+    del giant
+    timed("giant vs cpu", phase_giant_vs_cpu)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "so_tpu", "bench")]
+    if bad:
+        raise AssertionError(f"imported from the JAX side: {bad}")
 
     kernels = [
         dict(name="slab_gather", route="cuda",
@@ -804,6 +1097,10 @@ def main():
              source="so_tpu_torch/csrc/seqsum.cu",
              replaces="so_tpu/ops/seqsum.py:18",
              launches=LAUNCHES["K2"], **k2),
+        dict(name="piece_gather", route="cuda",
+             source="so_tpu_torch/csrc/piece_gather.cu",
+             replaces="experiments/pallas_piece_dma.py:176",
+             launches=LAUNCHES["K3"], **k3),
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,21 +19,17 @@ import time as _time
 
 import numpy as np
 
-from so_tpu.cosmology import rhovir_over_rhobar
-from so_tpu.io.catalogs import read_gtp_list, read_mark, read_stat
-from so_tpu.io.tipsy import DARK, GAS, STAR, MARK, read_tipsy
-from so_tpu.io.writers import (SPECIES_EXT, write_array_file,
-                               write_profile_file, write_sogtp,
-                               write_sovcirc_header, write_sovcirc_rows)
-from so_tpu.stats import format_stats
-from so_tpu.units import unit_conversions
-from so_tpu.version import __version__
-
+from .cosmology import rhovir_over_rhobar
 from .engine.pipeline import (NOT_PORTED, SOParams, not_ported, run_so,
                               run_so_multi)
-
-BANNER = (f"so_tpu_torch {__version__} (PyTorch/CUDA SO engine; "
-          "reference parity: SO 1.7)")
+from .io.catalogs import read_gtp_list, read_mark, read_stat
+from .io.tipsy import DARK, GAS, STAR, MARK, read_tipsy
+from .io.writers import (SPECIES_EXT, write_array_file, write_profile_file,
+                         write_sogtp, write_sovcirc_header,
+                         write_sovcirc_rows)
+from .stats import format_stats
+from .units import unit_conversions
+from .version import BANNER
 
 USAGE = """USAGE:
 python -m so_tpu_torch -i <SKID .gtp file> [-o <outfilebase>]

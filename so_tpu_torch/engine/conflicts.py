@@ -6,8 +6,9 @@ each successful group walks its interior particles in ascending distance
 (kdTagParticles, kd2.c:663-720): an unowned particle is tagged; one owned
 by B is SUBSUMED (B zeroed) when |posA-posB| <= RvirA, SLURPS A when
 |posA-posB| <= RvirB, else is RETAINED by B (counted as ignored). The
-walk runs in the native C pass of so_tpu/native (jax-free); there is no
-second implementation here, so a missing native library is an error.
+walk runs in the port's native C pass (so_tpu_torch/native, a copy of
+so_tpu's); there is no second implementation here, so a missing native
+library is an error.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from so_tpu.native import conflict_pass_native
+from ..native import conflict_pass_native
 
 
 @dataclass
@@ -46,6 +47,7 @@ def resolve_conflicts(index: np.ndarray, pos: np.ndarray, mvir: np.ndarray,
                                np.asarray(order, np.int64),
                                members, n_particles)
     if out is None:
-        raise RuntimeError("the native conflict pass (so_tpu/native) could "
-                           "not be built or loaded: a C compiler is needed")
+        raise RuntimeError("the native conflict pass (so_tpu_torch/native) "
+                           "could not be built or loaded: a C compiler is "
+                           "needed")
     return ConflictState(**out)

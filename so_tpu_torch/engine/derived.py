@@ -22,8 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from so_tpu.io.tipsy import MARK
-
+from ..io.tipsy import MARK
 from ..ops.gather import slab_gather
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
@@ -206,7 +205,7 @@ def compute_derived(grid, centers: np.ndarray, rvir: np.ndarray,
                     mvir: np.ndarray, eligible: np.ndarray,
                     n_members: int = 8, species: tuple = (),
                     grav: float = 1.0) -> DerivedResult:
-    """Derived quantities for the eligible halos from a K1 gather at
+    """Derived quantities for the eligible halos from a K1/K3 gather at
     2*Rvir (zeros elsewhere): the checkpoint-resume path, where member
     lists come from the saved state and only this pass runs on the card."""
     G = centers.shape[0]

@@ -2,7 +2,7 @@
 (port of so_tpu/engine/multi.py).
 
 The reference solves one overdensity threshold per run. Here T thresholds
-are scanned against the same sorted candidate stream per halo: one K1
+are scanned against the same sorted candidate stream per halo: one K1/K3
 gather, one row sort and one cumulative mass (K2) per dispatch, then the
 single-threshold verdict per threshold, error codes included, so each
 output catalog equals an independent run at that threshold.

@@ -10,7 +10,7 @@ Stage order preserves the reference's observable semantics:
   6. stats                                                 (kdOutStats)
 
 Steps 2-4 read only particle data, which is what makes the batched form
-exact; step 5 is sequential and runs in so_tpu's native C pass.
+exact; step 5 is sequential and runs in the port's native C pass.
 run_so_multi solves several thresholds against shared gathers and runs
 steps 4-6 once per threshold.
 """
@@ -24,14 +24,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from so_tpu.io.catalogs import GroupCatalog
-from so_tpu.io.tipsy import ParticleSet
-from so_tpu.numerics import indexx
-from so_tpu.stats import RunStats, compute_stats
-
 from .. import checkpoint
+from ..io.catalogs import GroupCatalog
+from ..io.tipsy import ParticleSet
+from ..numerics import indexx
 from ..ops.grid import CellGrid, build_grid
 from ..profiling import PhaseTimer, profile_trace
+from ..stats import RunStats, compute_stats
 from .conflicts import ConflictState, resolve_conflicts
 from .derived import DerivedResult, compute_derived
 from .fused import members_and_derived

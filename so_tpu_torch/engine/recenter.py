@@ -4,9 +4,10 @@ reference: kdRvir's bPot block (kd2.c:749-761).
 Before the ball ladder runs, each group's center is replaced by the
 position of the minimum-phi particle within radius Rgtp of the input
 center. The pass reads only particle data, so it runs batched over all
-halos before the solve: K1 gathers the Rgtp ball from a copy of the
-payload with phi in the mass row, unsorted, and an argmin over the slots
-picks the particle (its source row comes from K1's idx output).
+halos before the solve: K1 (K3 on giant tiers) gathers the Rgtp ball
+from a copy of the payload with phi in the mass row, unsorted, and an
+argmin over the slots picks the particle (its source row comes from the
+kernel's idx output).
 
 Ties: the reference keeps the first minimum in kd-tree order; torch's
 argmin keeps the first minimum in K1's slot order, which is so_tpu's
@@ -22,17 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.gather import unsorted_gather
 from ..ops.grid import CellGrid
-from .solver import (_dispatch_chunks, _k_limit, _pick_level_span,
-                     unsorted_gather)
+from .solver import _dispatch_chunks, _k_limit, _pick_level_span
 
 
 def _recenter_stage(grid: CellGrid, phi_soa, level: int, K: int, S: int,
                     centers, radii):
     """(new centers, overflow) for one capacity tier."""
     d2, ch, idx, overflow = unsorted_gather(
-        grid, level, centers, radii, K, S, payload=phi_soa, chans=("mass",),
-        want_idx=True)
+        grid, level, centers, radii, radii * radii, K, S, chans=("mass",),
+        want_idx=True, payload=phi_soa)
     ok = torch.isfinite(d2)
     phi = torch.where(ok, ch[:, 0], torch.full_like(d2, torch.inf))
     amin = torch.argmin(phi, dim=1)       # the first minimum in slot order

@@ -37,11 +37,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.gather import cell_ranges
+from ..ops.gather import cell_ranges, unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
-from ..ops.slab_gather import chunk_descriptors, slab_gather_rows
 
 FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
@@ -163,22 +162,6 @@ def scan_verdict(d2_s, mass_s, n_in, cum, rho, thr: float, n_members: int,
     return dict(found=found, jstar=jstar, mvir=mvir, d2cut=d2cut)
 
 
-def unsorted_gather(grid: CellGrid, level: int, centers, radii, K: int,
-                    S: int, payload=None, chans: tuple = (),
-                    want_idx: bool = False):
-    """K1 with no row sort: (d2, channels, idx, overflow) in the kernel's
-    slot order. ``payload`` replaces the grid's (-pot puts phi in the
-    mass row)."""
-    r2 = radii * radii
-    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2, S,
-                                    align=grid.chunk)
-    a0, lo, hi, nt = chunk_descriptors(st, cnt, q, K, grid.chunk)
-    d2, ch, idx = slab_gather_rows(
-        grid.soa8t if payload is None else payload, a0, lo, hi, nt, centers,
-        grid.period, r2, K, grid.chunk, chans, want_idx=want_idx)
-    return d2, ch, idx, total > K
-
-
 def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
                     n_members: int, centers, radii,
                     thresholds: np.ndarray) -> np.ndarray:
@@ -187,15 +170,16 @@ def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
     The -1 verdict needs only the in-ball count (kd2.c:772-778) and the
     -2 verdict only the first nMembers sorted hits (the two-consecutive
     rule firing at the earliest eligible slot, kd2.c:785-796): an
-    unsorted K1 gather plus a count test (uniform masses) or a 16-wide
-    nearest prefix (general masses) replaces the K-wide sort. Halos it
-    cannot decide re-run in the full rounds, whose verdict is the
-    contract. ``thresholds`` is a (T,) f32 vector: the -2 rule is
-    evaluated per threshold against the same gather. Returns the host
-    (B, 2) i32 [n_in | overflow << 31, bit t = -2 at thresholds[t]]."""
+    unsorted K1 gather (K3 above gather.PIECE_K_MIN slots) plus a count
+    test (uniform masses) or a 16-wide nearest prefix (general masses)
+    replaces the K-wide sort. Halos it cannot decide re-run in the full
+    rounds, whose verdict is the contract. ``thresholds`` is a (T,) f32
+    vector: the -2 rule is evaluated per threshold against the same
+    gather. Returns the host (B, 2) i32
+    [n_in | overflow << 31, bit t = -2 at thresholds[t]]."""
     um = grid.uniform_mass
     d2, ch, _, overflow = unsorted_gather(
-        grid, level, centers, radii, K, S,
+        grid, level, centers, radii, radii * radii, K, S,
         chans=() if um is not None else ("mass",))
     n_in = torch.isfinite(d2).sum(dim=1)
     if um is not None:

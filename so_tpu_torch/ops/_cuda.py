@@ -38,6 +38,10 @@ _SIGNATURES = {
     #  chunk, nchan, c0..c4, out, out_idx, stream)
     "so_slab_gather": [_P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L, _I,
                        _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (soa, np_cols, src, t0, v, lo, hi, n_pieces, n_chunks, np_max,
+    #  centers, period, r2, B, K, chunk, nchan, c0..c4, out, out_idx, stream)
+    "so_piece_gather": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (x, y, B, K, stream)
     "so_seqsum_rows": [_P, _P, _L, _L, _P],
 }

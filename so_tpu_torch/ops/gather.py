@@ -6,7 +6,9 @@
      (the reference's INTERSECT role),
   3. merge Morton-adjacent cell slabs into maximal runs and lay their
      CHUNK-aligned footprints out densely (cell_ranges, align=chunk),
-  4. kernel K1 computes min-image distances and channels per slot, and the
+  4. a kernel computes min-image distances and channels per slot
+     (unsorted_gather): K1 up to PIECE_K_MIN slots, K3 above (the giant
+     tiers; the same function and slot layout, so the same bits), and the
      rows are sorted by distance (slab_gather).
 
 Capacity K and cube side S are per-dispatch values; the host escalates K
@@ -20,7 +22,12 @@ from typing import NamedTuple
 import torch
 
 from .grid import CellGrid, morton_encode
+from .piece_gather import piece_descriptors, piece_gather_rows
 from .slab_gather import chunk_descriptors, slab_gather_rows
+
+# Dispatches of more slots than this go through K3, the rest through K1:
+# so_tpu's K_SLAB_MAX, the capacity where it leaves its per-chunk kernel.
+PIECE_K_MIN = 1 << 15
 
 
 def min_image(c, p, period):
@@ -122,6 +129,27 @@ def cell_ranges(grid: CellGrid, level: int, centers, radii, r2_mask, S: int,
     return st, cnt, q, total
 
 
+def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
+                    K: int, S: int, chans: tuple = (), want_idx: bool = False,
+                    payload=None):
+    """(d2, channels, idx, overflow) in the kernels' slot order, no row
+    sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
+    names (slab_gather.CHANNEL_ROWS); ``payload`` replaces the grid's
+    (-pot puts phi in the mass row)."""
+    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2_mask, S,
+                                    align=grid.chunk)
+    soa = grid.soa8t if payload is None else payload
+    if K > PIECE_K_MIN:
+        desc = piece_descriptors(st, cnt, q, K, grid.chunk)
+        rows = piece_gather_rows
+    else:
+        desc = chunk_descriptors(st, cnt, q, K, grid.chunk)
+        rows = slab_gather_rows
+    d2, ch, idx = rows(soa, *desc, centers, grid.period, r2_mask, K,
+                       grid.chunk, chans, want_idx)
+    return d2, ch, idx, total > K
+
+
 class SlabGatherResult(NamedTuple):
     d2: torch.Tensor          # (B, K) sorted ascending; +inf beyond n_in
     channels: tuple           # requested channels, sorted alongside d2
@@ -131,7 +159,8 @@ class SlabGatherResult(NamedTuple):
 
 def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
                 K: int, S: int, channels: tuple = ("mass",)) -> SlabGatherResult:
-    """Sorted (d2, channel...) stacks per halo through kernel K1.
+    """Sorted (d2, channel...) stacks per halo (unsorted_gather, then a
+    stable row sort).
 
     ``channels`` is drawn from {"mass", "mv", "meta", "idx"}: "mv" gives a
     (B, K, 3) m*v stack, "idx" the exact int32 source row (-1 off-ball).
@@ -144,14 +173,9 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
             kernel_chans.append(ch)
         elif ch != "idx":
             raise ValueError(ch)
-    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                                    align=grid.chunk)
-    overflow = total > K
-    a0, lo, hi, n_total = chunk_descriptors(st, cnt, q, K, grid.chunk)
-    d2, ch, idx = slab_gather_rows(grid.soa8t, a0, lo, hi, n_total, centers,
-                                   grid.period, r2_mask, K, grid.chunk,
-                                   tuple(kernel_chans),
-                                   want_idx="idx" in channels)
+    d2, ch, idx, overflow = unsorted_gather(
+        grid, level, centers, radii, r2_mask, K, S, tuple(kernel_chans),
+        want_idx="idx" in channels)
     n_in = torch.isfinite(d2).sum(dim=1)
     # Stable sort: tie order at equal d2 is free in the reference (its NR
     # sort is unstable, docs/PARITY.md #3), and a stable sort over the

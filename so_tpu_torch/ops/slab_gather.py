@@ -60,26 +60,18 @@ def chunk_descriptors(st, cnt, q, K: int, chunk: int):
     return a0, lo, hi, n_total
 
 
-def _channel_codes(chans: tuple) -> list:
+def channel_codes(chans: tuple) -> list:
     if len(chans) > 5:
         raise ValueError(f"at most 5 float channels, got {chans}")
     return [CHANNEL_ROWS[c] for c in chans]
 
 
-def slab_gather_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
-                      K: int, chunk: int, chans: tuple = (),
-                      want_idx: bool = False):
-    """The kernel's computation in plain torch: every (halo, chunk, lane)
-    source row at once. Same f32 association as the kernel; torch runs
-    each elementwise op separately, so nothing is contracted into FMA."""
-    codes = _channel_codes(chans)
-    B, NC = a0.shape
-    dev = soa8t.device
-    lane = torch.arange(chunk, device=dev)
-    t = torch.arange(NC, device=dev)
-    row = a0[:, :, None] + (t * chunk)[None, :, None] + lane   # (B, NC, ch)
-    in_cell = ((t[None, :] < n_total[:, None])[:, :, None]
-               & (row >= lo[:, :, None]) & (row < hi[:, :, None]))
+def row_fields(soa8t, row, in_cell, centers, period, r2, codes: list,
+               want_idx: bool):
+    """Per (halo, ...) source row: d2 (+inf off-ball), the channel values
+    (0 off-ball) and the row itself (-1 off-ball), with the kernels' f32
+    association; torch runs each elementwise op separately, so nothing is
+    contracted into FMA. ``row`` and ``in_cell`` are (B, X, Y)."""
     rc = torch.where(in_cell, row, torch.zeros_like(row))
 
     def d(axis):
@@ -91,44 +83,67 @@ def slab_gather_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
     dx, dy, dz = d(0), d(1), d(2)
     d2 = dx * dx + dy * dy + dz * dz
     in_ball = in_cell & (d2 <= r2[:, None, None])
-
-    def slots(v):                       # (B, NC, chunk) -> (B, K)
-        return v.reshape(B, NC * chunk)[:, :K]
-
-    d2_out = slots(torch.where(in_ball, d2, torch.full_like(d2, torch.inf)))
+    d2_out = torch.where(in_ball, d2, torch.full_like(d2, torch.inf))
     zero = torch.zeros_like(d2)
     vals = []
     for code in codes:
         v = soa8t[code][rc]
         if 4 <= code <= 6:
             v = soa8t[3][rc] * v
-        vals.append(slots(torch.where(in_ball, v, zero)))
-    ch = (torch.stack(vals, dim=1) if vals
-          else torch.zeros((B, 0, K), dtype=torch.float32, device=dev))
-    idx = None
-    if want_idx:
-        idx = slots(torch.where(in_ball, row, torch.full_like(row, -1))
-                    ).to(torch.int32)
-    return d2_out, ch, idx
+        vals.append(torch.where(in_ball, v, zero))
+    idx = (torch.where(in_ball, row, torch.full_like(row, -1)).to(torch.int32)
+           if want_idx else None)
+    return d2_out, vals, idx
 
 
-def _slab_gather_cuda(soa8t, a0, lo, hi, n_total, centers, period, r2,
-                      K: int, chunk: int, chans: tuple, want_idx: bool):
-    global launches
-    codes = _channel_codes(chans)
+def slab_gather_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
+                      K: int, chunk: int, chans: tuple = (),
+                      want_idx: bool = False):
+    """The kernel's computation in plain torch: every (halo, chunk, lane)
+    source row at once (row_fields), laid out in the dense slots."""
+    codes = channel_codes(chans)
     B, NC = a0.shape
     dev = soa8t.device
+    lane = torch.arange(chunk, device=dev)
+    t = torch.arange(NC, device=dev)
+    row = a0[:, :, None] + (t * chunk)[None, :, None] + lane   # (B, NC, ch)
+    in_cell = ((t[None, :] < n_total[:, None])[:, :, None]
+               & (row >= lo[:, :, None]) & (row < hi[:, :, None]))
+    d2, vals, idx = row_fields(soa8t, row, in_cell, centers, period, r2,
+                               codes, want_idx)
+
+    def slots(v):                       # (B, NC, chunk) -> (B, K)
+        return v.reshape(B, NC * chunk)[:, :K]
+
+    ch = (torch.stack([slots(v) for v in vals], dim=1) if vals
+          else torch.zeros((B, 0, K), dtype=torch.float32, device=dev))
+    return slots(d2), ch, None if idx is None else slots(idx)
+
+
+def check_inputs(name: str, soa8t, B: int, chunk: int, tensors) -> None:
+    """The checks K1 and K3 share: payload layout, halo count, chunk, and
+    every input on the payload's device."""
     if soa8t.dtype != torch.float32 or soa8t.dim() != 2 \
             or soa8t.shape[0] != 8 or not soa8t.is_contiguous():
         raise ValueError("soa8t must be a contiguous (8, Np) f32 tensor")
     if soa8t.shape[1] >= 2 ** 31:
         raise ValueError("payload rows must fit int32")
     if not 0 < B <= 65535 or chunk > 1024:
-        raise ValueError(f"K1 takes 1..65535 halos and chunk <= 1024, got "
-                         f"B={B}, chunk={chunk}")
-    if any(x.device != dev for x in (a0, lo, hi, n_total, centers, period,
-                                     r2)):
-        raise ValueError("K1 inputs must all lie on the payload's device")
+        raise ValueError(f"{name} takes 1..65535 halos and chunk <= 1024, "
+                         f"got B={B}, chunk={chunk}")
+    if any(x.device != soa8t.device for x in tensors):
+        raise ValueError(f"{name} inputs must all lie on the payload's "
+                         "device")
+
+
+def _slab_gather_cuda(soa8t, a0, lo, hi, n_total, centers, period, r2,
+                      K: int, chunk: int, chans: tuple, want_idx: bool):
+    global launches
+    codes = channel_codes(chans)
+    B, NC = a0.shape
+    dev = soa8t.device
+    check_inputs("K1", soa8t, B, chunk,
+                 (a0, lo, hi, n_total, centers, period, r2))
     if (lo.shape != (B, NC) or hi.shape != (B, NC) or n_total.shape != (B,)
             or centers.shape != (B, 3) or period.shape != (3,)
             or r2.shape != (B,) or not 0 < K <= NC * chunk):

@@ -1,12 +1,14 @@
-"""Kernels K1 (csrc/slab_gather.cu) and K2 (csrc/seqsum.cu) on the card.
+"""Kernels K1 (csrc/slab_gather.cu), K2 (csrc/seqsum.cu) and K3
+(csrc/piece_gather.cu) on the card.
 
 Every test needs a CUDA device and skips without one. Each kernel is
 held against its plain torch version on the same CUDA tensors, and
 against the CPU run of that plain version: all must agree bit for bit
 (the kernels are built with -fmad=false and use rintf/__fdiv_rn, the
-plain versions run one elementwise torch op at a time). The paths that
-call them (the pipeline, -pot recentring, the multi-threshold solve and
-the survey pre-pass) must give the same bits on the card and the CPU.
+plain versions run one elementwise torch op at a time); K3 equals K1.
+The paths that call them (the pipeline, -pot recentring, the
+multi-threshold solve and the survey pre-pass, and the giant tiers
+through K3) must give the same bits on the card and the CPU.
 
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -q \
@@ -96,6 +98,56 @@ def test_k1_matches_plain(dev, n, chans):
     np.testing.assert_array_equal(idx.cpu().numpy(), cidx.numpy())
 
 
+@pytest.mark.parametrize("chans,want_idx", [((), False), (("mass",), False),
+                                            (FULL, True)])
+@pytest.mark.parametrize("n", [20000, 40000])   # chunk 128, then 256
+def test_k3_matches_plain_and_k1(dev, n, chans, want_idx):
+    """K3 against its plain version (card and CPU) and against K1, bit for
+    bit, at giant capacities: K cut mid-piece, and K small enough that
+    the large balls' pieces run past NP."""
+    from so_tpu_torch.ops import piece_gather
+
+    rng, pos, mass, vel, ptype, mark = _box(2, n)
+    grid = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=4,
+                      device=dev)
+    B, S, level = 8, 4, 2                   # 4^3 cells: the whole box
+    centers = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3))
+                              .astype(np.float32), device=dev)
+    centers[:2] = 0.0
+    radii = torch.as_tensor(rng.uniform(0.1, 0.45, B).astype(np.float32),
+                            device=dev)
+    st, cnt, q, total = cell_ranges(grid, level, centers, radii,
+                                    radii * radii, S, align=grid.chunk)
+    for K in (3000, n + 77, 3 * n):
+        desc = piece_gather.piece_descriptors(st, cnt, q, K, grid.chunk)
+        args = (grid.soa8t, *desc, centers, grid.period, radii * radii, K,
+                grid.chunk, chans, want_idx)
+        n0 = piece_gather.launches
+        got = piece_gather.piece_gather_rows(*args)
+        torch.cuda.synchronize()
+        assert piece_gather.launches == n0 + 1
+        plain = piece_gather.piece_gather_plain(*args)
+        cpu = piece_gather.piece_gather_plain(
+            *[x.cpu() if torch.is_tensor(x) else x for x in args])
+        k1 = slab_gather.slab_gather_rows(
+            grid.soa8t, *slab_gather.chunk_descriptors(st, cnt, q, K,
+                                                       grid.chunk),
+            centers, grid.period, radii * radii, K, grid.chunk, chans,
+            want_idx)
+        assert piece_gather.launches == n0 + 1
+        assert (total > K).any() or K > 3000
+        assert (total <= K).all() or K < 3 * n
+        for want in (plain, cpu, k1):
+            for a, b in zip(got, want):
+                if a is None:
+                    assert b is None
+                    continue
+                a, b = a.cpu(), b.cpu()
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b)
+
+
 def test_k1_rejects_bad_payload(dev):
     soa = torch.zeros((8, 300), device=dev)[:, ::2]     # not contiguous
     z = torch.zeros((1, 2), dtype=torch.int64, device=dev)
@@ -129,8 +181,8 @@ def test_pipeline_cuda_matches_cpu(dev):
     and on the CPU (the stable row sort fixes the tie order on both)."""
     sys.path.insert(0, HERE)
     from fixtures import make_clumpy_box
-    from so_tpu.io.catalogs import GroupCatalog
-    from so_tpu.io.tipsy import DARK, GAS, STAR, ParticleSet, TipsyHeader
+    from so_tpu_torch.io.catalogs import GroupCatalog
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR, ParticleSet, TipsyHeader
     from so_tpu_torch.engine.pipeline import SOParams, run_so
 
     rng = np.random.default_rng(12)
@@ -249,3 +301,46 @@ def test_multi_and_survey_cuda_match_cpu(dev):
             cgrid, 1, 4096, 5, 8, torch.as_tensor(centers),
             torch.as_tensor(rgtp), np.float32(thresholds))
         np.testing.assert_array_equal(packed, cpacked)
+
+
+def test_giant_route_cuda_matches_cpu(dev, monkeypatch):
+    """With gather.PIECE_K_MIN lowered, K3 serves the solve and the fused
+    pass: the card and the CPU give the same bits, K3 launches and the
+    results equal the K1 route's."""
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.io.catalogs import GroupCatalog
+    from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader
+    from so_tpu_torch.ops import gather, piece_gather
+
+    rng, pos, mass, vel, _, _ = _box(9, 30000)
+    n = pos.shape[0]
+    mass = (mass / n).astype(np.float32)
+    ps = ParticleSet(TipsyHeader(time=1.0, nbodies=n, ndim=3, nsph=0,
+                                 ndark=n, nstar=0), pos, vel, mass,
+                     np.zeros(n, np.float32), np.zeros(n, np.float32))
+    G = 24
+    centers = rng.uniform(-0.5, 0.5, (G, 3)).astype(np.float32)
+    centers[:6] = rng.normal(scale=0.01, size=(6, 3))
+    gtp_mass = rng.uniform(0.1, 1.0, G).astype(np.float32)
+
+    def cat():
+        return GroupCatalog(index=np.arange(1, G + 1, dtype=np.int32),
+                            pos=centers.copy(),
+                            rgtp=np.full(G, 0.06, np.float32),
+                            gtp_mass=gtp_mass, n_in_gtp=G, gtp_time=1.0)
+
+    k1 = run_so(ps, cat(), SOParams(device="cuda"))
+    monkeypatch.setattr(gather, "PIECE_K_MIN", 1024)
+    n0 = piece_gather.launches
+    g = run_so(ps, cat(), SOParams(device="cuda"))
+    assert piece_gather.launches > n0
+    c = run_so(ps, cat(), SOParams(device="cpu"))
+    assert (g.solve.code == 0).sum() >= 4
+    for run in (c, k1):
+        for a, b in ((g.solve.mvir, run.solve.mvir),
+                     (g.solve.j, run.solve.j),
+                     (g.solve.d2cut, run.solve.d2cut),
+                     (g.conflicts.igrp, run.conflicts.igrp),
+                     (g.derived.vcirc, run.derived.vcirc),
+                     (g.derived.rmass, run.derived.rmass)):
+            assert a.tobytes() == b.tobytes()

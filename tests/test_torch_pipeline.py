@@ -142,7 +142,7 @@ def test_run_so_matches_so_tpu(uniform, monkeypatch):
             port[f][h] = v
     for f, v in port.items():
         np.testing.assert_array_equal(getattr(got.derived, f), v, err_msg=f)
-    assert got.stats == want.stats
+    assert vars(got.stats) == vars(want.stats)   # the two packages' RunStats
 
 
 @pytest.mark.parametrize("option", [["--mesh", "2x1"], ["--distributed"]])
@@ -164,13 +164,15 @@ def test_unported_options_raise(option, tmp_path, capsys):
 
 def test_port_never_imports_jax(tmp_path):
     """Full CPU runs through the port's CLI, plain and with -pot --deltas
-    --survey --checkpoint, leave jax unimported."""
+    --survey --checkpoint, leave jax, so_tpu (any module) and bench
+    unimported; the native conflict pass is the port's own library, built
+    under so_tpu_torch/_build/ (so nothing is built into so_tpu/)."""
+    args = generate_inputs("errors", str(tmp_path))   # fixtures use so_tpu.io
     code = f"""
-import sys
-sys.path.insert(0, {HERE!r})
+import os, sys
 import so_tpu_torch.cli
-from scenarios import generate_inputs
-args = generate_inputs("errors", {str(tmp_path)!r})
+import so_tpu_torch.native as native
+args = {args!r}
 d = {str(tmp_path)!r}
 base = ["-i", d + "/cat.gtp", "--tipsy", d + "/snap.bin", "--device", "cpu"]
 assert so_tpu_torch.cli.main(base + ["-o", d + "/got"] + args) == 0
@@ -178,7 +180,13 @@ assert so_tpu_torch.cli.main(base + ["-o", d + "/multi", "-pot", "--deltas",
                                      "178,500", "--survey"] + args) == 0
 assert so_tpu_torch.cli.main(base + ["-o", d + "/ck", "--checkpoint",
                                      d + "/state.npz"] + args) == 0
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "so_tpu", "bench"))
+assert not bad, bad
+lib = native.get_lib()._name
+assert lib == native.library_path() and os.path.exists(lib), lib
+assert os.path.dirname(lib) == os.path.join(
+    os.path.dirname(so_tpu_torch.__file__), "_build"), lib
 print("JAX_FREE")
 """
     env = dict(os.environ)
