@@ -6,13 +6,21 @@
 Phases, each printing its own lines and seconds; any failure raises and the
 script exits nonzero:
 
-  1. environment: torch/CUDA versions, the card's name and power limit
+  1. environment: torch/CUDA versions, the card's name and power limit,
+     its maximum SM clock (the chain term of K2's bound: 4 cycles a
+     dependent f32 add)
   2. build: nvcc compiles so_tpu_torch/csrc/*.cu into so_tpu_torch/_build/
   3. kernels against their plain torch versions on the card, at main-path
      shapes: K1 (slab gather) at B=4096, K=4096, chunk 256 and 128, with
-     0, 1, 2 and 5 float channels, on the 2^21-particle payload; K2 (serial
-     f32 row cumsum) at (16384, 4096), the solve scan's shape, and at
-     (16384, 16), the survey classify prefix's. K3 (run-level piece
+     0, 1, 2 and 5 float channels, on the 2^21-particle payload. K2 (serial
+     f32 row cumsum) over its dispatch ladder (K2_LADDER: the solve's
+     2^26-slot tiers from (16384, 2^12) to (8, 2^23), the fused pass's
+     2^25-slot tiers at K = 2^12 and 2^22, the survey prefix's (16384, 16),
+     and (1000, 4097)), with and without a random n_valid, each shape's
+     kernel ms by CUDA events around the calls (as K1 and K3, the
+     wrapper's host cost included) and its device ms (the calls replayed
+     from one CUDA graph), beside its bytes and chain bounds (k2_study.py
+     holds the measurements that chose K2's forms). K3 (run-level piece
      gather) against its plain version and against K1 on the giant box
      (below), B = 8 and 64 halos about the clump, K = 2^18 and 2^21, d2
      only / mass / mass + meta + idx, with K1's time beside K3's.
@@ -56,16 +64,22 @@ script exits nonzero:
      giant centers on the clump and 60 small ones), run_so on "cuda" with
      general, then uniform masses. K1 and K3 must run in both, K2 in the
      general one; the 4 giant halos' code, Mvir and Rvir must match
-     tests/reference_oracle.py (rel 2e-5). Then the same configuration at
+     tests/reference_oracle.py (rel 2e-5). The general run is repeated
+     with the in-ball counts K2's callers pass dropped (chains over all K
+     slots): every field must be identical. Then the same configuration at
      200,000 / 120,000 / 12 with gather.PIECE_K_MIN lowered to 2^12, so
      K3 serves most dispatches, on "cuda" and "cpu": identical bits.
 
 Phases 4, 7-10 and each giant run zero every kernel's launch counter
 before they start and fail unless their kernels grew (9's
-card-against-CPU check runs after its count is read). The line before
+card-against-CPU check runs after its count is read) and log K2's
+launches per (B, K). The line before
 the last is a JSON object with one entry per kernel (launches summed
 over those phases; bounds from this run's inputs at the card's 3.35 TB/s
-and 67 TFLOP/s f32); the last line is {"ok": true, "device": {...}}.
+and 67 TFLOP/s f32 and, for K2, its longest chain of dependent adds; K2's
+entry adds its graph-replayed "device_ms" and its giant-row figures under
+"giant_rows"); the last line is
+{"ok": true, "device": {...}}.
 The card's name and power limit are printed by phase 1.
 """
 
@@ -86,15 +100,34 @@ MULTI_ROUNDS = 3   # timed multi-vs-singles rounds after the cold multi run
 SURVEY_ROUNDS = 3  # timed rounds of the three survey modes after a warm-up
 GIANT_SEED = 515151
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}   # launches summed over the paths
+K2_SHAPES = {}             # K2 launches per (B, K), summed over the paths
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+FADD = {"cycles": 4.0, "sm_hz": None}   # one dependent f32 add; phase_env
+                                        # reads the SM clock
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, chain=0):
     """(bound_ms, bound_by): the least time for the bytes a function must
-    move and the f32 operations it must do, at the card's peak rates."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    move, the f32 operations it must do (at the card's peak rates) and its
+    longest chain of dependent adds (FADD cycles each at the SM clock)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": ops / F32_OPS_PER_S,
+             "chain": chain * FADD["cycles"] / FADD["sm_hz"] if chain else 0}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def k2_bound(B, K, n_valid=None):
+    """bound() of one K2 call: the valid slots read once (and the counts),
+    every slot written once, one add per valid slot, and the longest row's
+    chain."""
+    if n_valid is None:
+        n, longest, extra = B * K, K, 0
+    else:
+        nv = n_valid.clamp(0, K)
+        n, longest, extra = int(nv.sum()), int(nv.max()), 8 * B
+    return bound(4 * (n + B * K) + extra, n, longest)
 
 
 def make_box(rng, n_particles, n_halos):
@@ -189,6 +222,32 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device milliseconds per call: reps calls captured in one CUDA
+    graph, timed by CUDA events around a replay (after a warm replay), so
+    a launch-bound call is timed without the Python wrapper's cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
 def max_abs_err(a, b):
     """Largest |a-b| over entries finite in both; infinities and NaNs must
     sit at the same places (raises otherwise)."""
@@ -223,6 +282,17 @@ def phase_env():
     if not card:
         raise RuntimeError("nvidia-smi gave no card: " + smi.stderr)
     log(card)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    mhz = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    if not mhz.endswith("MHz"):
+        raise RuntimeError("nvidia-smi gave no SM clock: " + smi.stderr)
+    FADD["sm_hz"] = float(mhz.split()[0]) * 1e6
+    ns = FADD["cycles"] / FADD["sm_hz"] * 1e9
+    log(f"[env] clocks.max.sm {mhz}: one dependent f32 add = "
+        f"{FADD['cycles']:g} cycles = {ns:.4f} ns (the chain term of K2's "
+        "bound)")
     return card
 
 
@@ -262,14 +332,14 @@ def make_standard_box():
 
 
 def phase_kernels(box):
-    """K1 and K2 against their plain versions at main-path shapes."""
+    """K1 against its plain version at main-path shapes."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from so_tpu_torch.engine.solver import ladder_radius, _pick_level_span
-    from so_tpu_torch.ops import seqsum, slab_gather
+    from so_tpu_torch.ops import slab_gather
     from so_tpu_torch.ops.gather import cell_ranges
     from so_tpu_torch.ops.grid import build_grid
 
@@ -315,47 +385,86 @@ def phase_kernels(box):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, shape=f"B={B} K={K} {tag}")
     k1 = rows[(256, 1)]       # the general-mass solve stage's shape
-
-    x = torch.rand((16384, 4096), generator=torch.Generator(device=dev)
-                   .manual_seed(SEED), device=dev)
-    got = seqsum.seq_cumsum(x)
-    want = seqsum.seq_cumsum_plain(x)
-    torch.cuda.synchronize()
-    assert_same_bits("K2", got, want)
-    err = max_abs_err(got, want)
-    ms = cuda_ms(lambda: seqsum.seq_cumsum(x), 5)
-    plain_ms = cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 1)
-    bms, by = bound(8 * x.numel(), x.numel())
-    log(f"[K2] (16384, 4096): exact, max_abs_err {err} kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by})")
-    k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-              bound_by=by, library_ms=None, shape="B=16384 K=4096")
-    # the survey classify prefix: K2 over (B, 16) nearest-hit masses
-    x = torch.rand((16384, 16), generator=torch.Generator(device=dev)
-                   .manual_seed(SEED + 1), device=dev)
-    got = seqsum.seq_cumsum(x)
-    want = seqsum.seq_cumsum_plain(x)
-    torch.cuda.synchronize()
-    assert_same_bits("K2 (16384, 16)", got, want)
-    log(f"[K2] (16384, 16): exact, max_abs_err {max_abs_err(got, want)} "
-        f"kernel {cuda_ms(lambda: seqsum.seq_cumsum(x), 20):.4f} ms plain "
-        f"{cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 3):.4f} ms")
-    # a giant tier's rows: (8, 2^23), against the plain version on the CPU
-    # (on the card the plain version is 2^23 column steps)
-    x = torch.rand((8, 1 << 23), generator=torch.Generator(device=dev)
-                   .manual_seed(SEED + 2), device=dev)
-    got = seqsum.seq_cumsum(x)
-    t0 = time.perf_counter()
-    want = seqsum.seq_cumsum_plain(x.cpu())
-    cpu_s = time.perf_counter() - t0
-    assert_same_bits("K2 (8, 2^23)", got.cpu(), want)
-    bms, by = bound(8 * x.numel(), x.numel())
-    log(f"[K2] (8, 2^23): exact against the CPU plain version ({cpu_s:.3f}"
-        f" s on the host); kernel {cuda_ms(lambda: seqsum.seq_cumsum(x), 3):.4f}"
-        f" ms, bound {bms:.4f} ms ({by})")
-    del grid, x, got, want
+    del grid
     torch.cuda.empty_cache()
-    return k1, k2
+    return k1
+
+
+# K2's dispatch ladder: the solve's capacity tiers (B*K = 2^26), the fused
+# pass's (2^25) at K = 2^12 and 2^22, the survey classify prefix and an
+# odd shape (K % 4 != 0, B not a multiple of 32)
+K2_LADDER = [(16384, 1 << 12), (4096, 1 << 14), (1024, 1 << 16),
+             (256, 1 << 18), (64, 1 << 20), (16, 1 << 22), (8, 1 << 23),
+             (8192, 1 << 12), (8, 1 << 22), (16384, 16), (1000, 4097)]
+
+
+def phase_k2():
+    """K2 over its dispatch ladder (K2_LADDER): bit for bit against its
+    plain version (on the CPU for K >= 2^14), with and without a random
+    n_valid; kernel ms by CUDA events around the calls, and device ms by
+    one CUDA graph of the calls replayed (with n_valid too); the bytes and
+    chain bounds. Returns K2's kernel-line figures at (16384, 4096), with
+    the giant row's (8, 2^23) beside them."""
+    import torch
+
+    from so_tpu_torch.ops import seqsum
+
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_out = {}
+    for i, (B, K) in enumerate(K2_LADDER):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
+        x = torch.rand((B, K), generator=gen, device=dev)
+        nv = torch.randint(0, K + 1, (B,), generator=gen, device=dev)
+        on_cpu = K >= 1 << 14
+        err, t0 = 0.0, time.perf_counter()
+        for tag, n_valid in (("", None), (" n_valid", nv)):
+            got = seqsum.seq_cumsum(x, n_valid)
+            if on_cpu:
+                want = seqsum.seq_cumsum_plain(
+                    x.cpu(), None if n_valid is None else n_valid.cpu())
+                got = got.cpu()
+            else:
+                want = seqsum.seq_cumsum_plain(x, n_valid)
+            torch.cuda.synchronize()
+            assert_same_bits(f"K2 ({B}, {K}){tag}", got, want)
+            err = max(err, max_abs_err(got, want))
+            del got, want
+        check_s = time.perf_counter() - t0
+        reps = 20 if K <= 1 << 16 else 4
+        ms = cuda_ms(lambda: seqsum.seq_cumsum(x), reps)
+        dev_ms = graph_ms(lambda: seqsum.seq_cumsum(x), reps)
+        dev_ms_nv = graph_ms(lambda: seqsum.seq_cumsum(x, nv), reps)
+        bms, by = k2_bound(B, K)
+        bms_nv, by_nv = k2_bound(B, K, nv)
+        rows = seqsum.rows_per_block(B, K, n_sm)
+        line = (f"[K2] ({B}, {K}) rows/block {rows}: exact with and without"
+                f" n_valid ({'CPU' if on_cpu else 'card'} plain, "
+                f"{check_s:.1f} s), max_abs_err {err}; kernel {ms:.4f} ms "
+                f"(events), device {dev_ms:.4f} ms (graph); bound "
+                f"{bms:.4f} ms ({by}; bytes {bound(8 * B * K, 0)[0]:.4f}, "
+                f"chain {bound(0, 0, K)[0]:.4f}) = {bms / dev_ms:.3f} of the "
+                f"device time; random n_valid (mean "
+                f"{float(nv.float().mean()) / K:.3f} K) device "
+                f"{dev_ms_nv:.4f} ms bound {bms_nv:.4f} ms ({by_nv})")
+        rec = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, bound_ms=bms,
+                   bound_by=by, device_ms_n_valid=dev_ms_nv,
+                   shape=f"B={B} K={K}", rows=rows)
+        if (B, K) in ((16384, 1 << 12), (16384, 16)):
+            rec["plain_ms"] = cuda_ms(lambda: seqsum.seq_cumsum_plain(x), 1)
+            lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=1), reps)
+            line += (f"; plain {rec['plain_ms']:.4f} ms; torch.cumsum (a "
+                     f"parallel scan: other bits) {lib_ms:.4f} ms")
+        log(line)
+        rows_out[(B, K)] = rec
+        del x, nv
+        torch.cuda.empty_cache()
+    k2 = dict(rows_out[(16384, 1 << 12)], library_ms=None)
+    giant = rows_out[(8, 1 << 23)]
+    k2["giant_rows"] = {k: giant[k] for k in (
+        "shape", "ms", "device_ms", "bound_ms", "bound_by",
+        "device_ms_n_valid")}
+    return k2
 
 
 def phase_k3(giant):
@@ -473,6 +582,7 @@ def zero_counts():
     from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
 
     slab_gather.launches = seqsum.launches = piece_gather.launches = 0
+    seqsum.shape_launches.clear()
 
 
 def read_counts():
@@ -480,6 +590,19 @@ def read_counts():
 
     return dict(K1=slab_gather.launches, K2=seqsum.launches,
                 K3=piece_gather.launches)
+
+
+def read_k2_shapes(tag):
+    """Log K2's launches per (B, K) since the last zero_counts() and add
+    them to K2_SHAPES."""
+    from so_tpu_torch.ops import seqsum
+
+    hist = dict(sorted(seqsum.shape_launches.items()))
+    log(f"[{tag}] K2 launches per (B, K): "
+        + (", ".join(f"({b}, {k}): {n}" for (b, k), n in hist.items())
+           or "none"))
+    for key, n in hist.items():
+        K2_SHAPES[key] = K2_SHAPES.get(key, 0) + n
 
 
 def counted(tag, fn, *a, need=("K1", "K2")):
@@ -490,6 +613,7 @@ def counted(tag, fn, *a, need=("K1", "K2")):
     out = fn(*a)
     counts = read_counts()
     log(f"[{tag}] launches: {counts}")
+    read_k2_shapes(tag)
     if min(counts[k] for k in need) <= 0:
         raise AssertionError(f"{tag}: a kernel of the path never ran: "
                              f"{counts}")
@@ -552,6 +676,7 @@ def phase_main_path(box):
                         if k not in ("e2e", "R_Delta solve")))
     counts = read_counts()
     log(f"[main] launches in the main-path runs: {counts}")
+    read_k2_shapes("main")
     if min(counts["K1"], counts["K2"]) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     return counts
@@ -1006,7 +1131,31 @@ def phase_giant(giant):
             f"{ph['members + derived (fused)']:.3f} s conflicts "
             f"{ph['conflict protocol']:.3f} s e2e {e2e:.3f} s; peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if tag == "general":
+            giant_without_counts(ps, catalog, out)
         del out
+
+
+def giant_without_counts(ps, catalog, ref):
+    """The general giant run once more with the in-ball counts K2's
+    callers pass dropped, so every chain runs over all K slots: every
+    field must equal the run with the counts (``ref``)."""
+    from so_tpu_torch.engine import derived, solver
+    from so_tpu_torch.ops import seqsum
+
+    def full(x, n_valid=None):
+        return seqsum.seq_cumsum(x)
+
+    solver.seq_cumsum = derived.seq_cumsum = full
+    try:
+        out, e2e = run(ps, catalog, (), "cuda")
+    finally:
+        solver.seq_cumsum = derived.seq_cumsum = seqsum.seq_cumsum
+    pairs = assert_runs_equal("giant general, counts dropped", out, ref, ())
+    log(f"[giant general, counts dropped] K2's chains over all K slots: "
+        f"{len(pairs)} fields and all member lists identical to the run "
+        f"with the counts; solve {out.phases['R_Delta solve']:.4f} s e2e "
+        f"{e2e:.4f} s")
 
 
 def phase_giant_vs_cpu():
@@ -1049,6 +1198,9 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke.py: torch sees no CUDA device\n")
         return 2
+    if len(sys.argv) > 1:
+        sys.stderr.write("usage: python3 chip_smoke.py (no arguments)\n")
+        return 2
     t_all = time.perf_counter()
     timings = {}
 
@@ -1063,7 +1215,8 @@ def main():
     timed("environment", phase_env)
     timed("build", phase_build)
     box = timed("standard box", make_standard_box)
-    k1, k2 = timed("kernels", phase_kernels, box)
+    k1 = timed("kernels", phase_kernels, box)
+    k2 = timed("K2 ladder", phase_k2)
     giant = timed("giant box", giant_config)
     k3 = timed("K3 kernel", phase_k3, giant)
     counts = timed("main path", phase_main_path, box)
@@ -1102,6 +1255,9 @@ def main():
              replaces="experiments/pallas_piece_dma.py:176",
              launches=LAUNCHES["K3"], **k3),
     ]
+    log("[K2] launches per (B, K) over the counted paths: "
+        + ", ".join(f"({b}, {k}): {n}" for (b, k), n in sorted(
+            K2_SHAPES.items())))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -77,7 +77,7 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
     if uniform_m is not None:
         cum, lad = _uniform_cum(uniform_m, K, n_in, valid)
     else:
-        cum = seq_cumsum(mass_s)        # C-order f32 (kd2.c:521, 543), K2
+        cum = seq_cumsum(mass_s, n_in)  # C-order f32 (kd2.c:521, 543), K2
 
     def cum_at(counts, c):
         return torch.where(counts > 0, c[rows, torch.clamp(counts - 1, min=0)],
@@ -134,7 +134,7 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
                 bins.append(torch.where(sc > 0, lad[torch.clamp(sc - 1, min=0)],
                                         zero))
         else:
-            cumsp = seq_cumsum(torch.where(sel, mass_s, zero))
+            cumsp = seq_cumsum(torch.where(sel, mass_s, zero), n_in)
             bins = [cum_at(cnt, cumsp) for cnt in bin_cnts]
         profs[sp] = torch.stack(bins, dim=1)
 

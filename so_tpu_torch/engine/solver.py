@@ -123,13 +123,14 @@ def enclosed_density(d2_s, mass_s, n_in, uniform_m: float | None = None):
     """The threshold-free half of the scan over distance-sorted hits:
     (cum, rho), the serial f32 cumulative mass (K2, or the shared ladder
     when ``mass_s`` is None on a uniform-mass grid) and the enclosed
-    density at each slot. ``mass_s`` is zero on invalid slots."""
+    density at each slot. ``mass_s`` is +0.0 on invalid slots, so K2's
+    chain stops at n_in."""
     K = d2_s.shape[1]
     slot = torch.arange(K, device=d2_s.device)[None, :]
     if uniform_m is not None:
         cum, _ = _uniform_cum(uniform_m, K, n_in, slot < n_in[:, None])
     else:
-        cum = seq_cumsum(mass_s)          # C-order f32 (kd2.c:807), K2
+        cum = seq_cumsum(mass_s, n_in)    # C-order f32 (kd2.c:807), K2
     r3 = d2_s * sqrt_rn(d2_s)
     return cum, cum / (float(FOUR_THIRDS_PI) * r3)
 
@@ -247,7 +248,7 @@ def _classify_verdict(d2k, mk, n_in, thresholds, n_members: int):
     (nMembers-2, -1, and the next) defer: the full solve may order equal
     d2 differently."""
     B, kk = d2k.shape
-    cum = seq_cumsum(mk)
+    cum = seq_cumsum(mk, n_in)          # mk is +0.0 past min(n_in, kk)
     rho = cum / (float(FOUR_THIRDS_PI) * (d2k * sqrt_rn(d2k)))
     slot = torch.arange(kk, device=d2k.device)[None, :]
     rho_next = torch.cat([rho[:, 1:], torch.full((B, 1), torch.inf,

@@ -42,8 +42,8 @@ _SIGNATURES = {
     #  centers, period, r2, B, K, chunk, nchan, c0..c4, out, out_idx, stream)
     "so_piece_gather": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                         _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (x, y, B, K, stream)
-    "so_seqsum_rows": [_P, _P, _L, _L, _P],
+    # (x, y, n_valid, B, K, rows, stream)
+    "so_seqsum_rows": [_P, _P, _P, _L, _L, _I, _P],
 }
 
 

@@ -158,22 +158,90 @@ def test_k1_rejects_bad_payload(dev):
             torch.ones(1, device=dev), 128, 128)
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (300, 4096), (4096, 257)])
+# both sides of rows_per_block's switch, K % 4 != 0, odd K, B not a
+# multiple of the 32-row group, a giant row, the survey prefix's K = 16
+K2_SHAPES = [(1, 1), (300, 4096), (4096, 257), (1000, 4097), (16384, 16),
+             (600, 1022), (33, 4096), (8, 1 << 18), (3, 5)]
+
+
+def _k2_cases(rng, B, K):
+    """n_valid cases: none, 0, K, random (some past K)."""
+    return {"none": None, "zero": np.zeros(B, np.int64),
+            "K": np.full(B, K, np.int64),
+            "random": rng.integers(0, K + K // 4 + 2, B)}
+
+
+def _k2_check(x, x_np, cases, tag):
+    """The picked form, then the single-chain walk and 32-row tiles forced
+    through rows_per_block, against the plain version on the CPU."""
+    pick = seqsum.rows_per_block
+    for name, nv in cases.items():
+        want = seqsum.seq_cumsum_plain(
+            torch.as_tensor(x_np), None if nv is None
+            else torch.as_tensor(nv)).numpy()
+        tnv = None if nv is None else torch.as_tensor(nv, device=x.device)
+        for rows in (None, 1, 32):
+            with pytest.MonkeyPatch.context() as mp:
+                if rows is not None:
+                    mp.setattr(seqsum, "rows_per_block",
+                               lambda B, K, n_sm, rows=rows: rows)
+                n0 = seqsum.launches
+                y = seqsum.seq_cumsum(x, tnv)
+                torch.cuda.synchronize()
+            assert seqsum.launches == n0 + 1
+            assert seqsum.rows_per_block is pick
+            np.testing.assert_array_equal(
+                y.cpu().numpy().view(np.int32), want.view(np.int32),
+                err_msg=f"{tag} n_valid={name} rows={rows}")
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
 def test_k2_matches_plain(dev, shape):
     rng = np.random.default_rng(7)
     x_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
     x = torch.as_tensor(x_np, device=dev)
-    n0 = seqsum.launches
-    y = seqsum.seq_cumsum(x)
-    torch.cuda.synchronize()
-    assert seqsum.launches == n0 + 1
-    want = np.cumsum(x_np, axis=1, dtype=np.float32)
-    np.testing.assert_array_equal(y.cpu().numpy().view(np.int32),
-                                  want.view(np.int32))
+    cases = _k2_cases(rng, *shape)
+    _k2_check(x, x_np, cases, str(shape))
     if shape[1] <= 512:     # the plain torch loop on the card, column by column
-        p = seqsum.seq_cumsum_plain(x)
-        np.testing.assert_array_equal(p.cpu().numpy().view(np.int32),
-                                      want.view(np.int32))
+        for nv in (None, cases["random"]):
+            tnv = None if nv is None else torch.as_tensor(nv, device=dev)
+            p = seqsum.seq_cumsum_plain(x, tnv)
+            want = seqsum.seq_cumsum_plain(x.cpu(), None if nv is None
+                                           else torch.as_tensor(nv))
+            np.testing.assert_array_equal(p.cpu().numpy().view(np.int32),
+                                          want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("K", [4096, 1023, 16])
+def test_k2_unaligned_base(dev, K):
+    """A row-offset view: the base is 4 bytes past a 16-byte boundary, so
+    the kernel takes its 4-byte copies even where K % 4 == 0."""
+    rng = np.random.default_rng(K)
+    B = 70
+    x_np = rng.uniform(0.0, 1.0, (B, K)).astype(np.float32)
+    buf = torch.empty(B * K + 1, device=dev)
+    x = buf[1:].view(B, K)
+    x.copy_(torch.as_tensor(x_np))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    _k2_check(x, x_np, _k2_cases(rng, B, K), f"offset view K={K}")
+
+
+def test_k2_adversarial_rows(dev):
+    """Rows whose bits change under any reassociation (alternating 1e8 and
+    1.0, cancelling signs, many binades, subnormals, -0.0 first)."""
+    rng = np.random.default_rng(77)
+    K = 8192
+    rows = [np.where(np.arange(K) % 2 == 0, 1e8, 1.0),
+            np.where(np.arange(K) % 3 == 0, -1e8, 1.0)
+            * rng.uniform(0.5, 1.5, K),
+            np.exp2(rng.integers(-40, 40, K)) * rng.uniform(1, 2, K),
+            rng.normal(size=K) * 1e7,
+            rng.uniform(1e-45, 1e-38, K)]
+    x_np = np.stack(rows * 8).astype(np.float32)     # 40 rows
+    x_np[::5, 0] = -0.0
+    x = torch.as_tensor(x_np, device=dev)
+    _k2_check(x, x_np, _k2_cases(rng, *x_np.shape), "adversarial")
+    assert not torch.equal(torch.cumsum(x, dim=1), seqsum.seq_cumsum(x))
 
 
 def test_pipeline_cuda_matches_cpu(dev):
