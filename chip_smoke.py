@@ -11,8 +11,16 @@ script exits nonzero:
      dependent f32 add)
   2. build: nvcc compiles so_tpu_torch/csrc/*.cu into so_tpu_torch/_build/
   3. kernels against their plain torch versions on the card, at main-path
-     shapes: K1 (slab gather) at B=4096, K=4096, chunk 256 and 128, with
-     0, 1, 2 and 5 float channels, on the 2^21-particle payload. K2 (serial
+     shapes: K1 (slab gather), both forms, on the 2^21-particle payload
+     with 48 particles moved onto the first halo's center (equal d2, +0.0):
+     the slotted form at B=4096, K=4096, chunk 256 and 128, with 0, 1, 2
+     and 5 float channels; the sorted form there too and, at chunk 256, at
+     (16384, 512), (1024, 2^14) and (3, 8192) with 0, 1 and 3 channels
+     (+idx), d2, every channel, idx and n_in bit for bit. Each [K1] line
+     gives the form's ms by CUDA events around the calls and its device ms
+     (the calls replayed from one CUDA graph), its bound, and for the
+     sorted form the route it replaces (the slotted kernel, the count of
+     finite d2, torch.sort and the gathers) as "unfused". K2 (serial
      f32 row cumsum) over its dispatch ladder (K2_LADDER: the solve's
      2^26-slot tiers from (16384, 2^12) to (8, 2^23), the fused pass's
      2^25-slot tiers at K = 2^12 and 2^22, the survey prefix's (16384, 16),
@@ -23,8 +31,8 @@ script exits nonzero:
      holds the measurements that chose K2's forms). K3 (run-level piece
      gather) against its plain version and against K1 on the giant box
      (below), B = 8 and 64 halos about the clump, K = 2^18 and 2^21, d2
-     only / mass / mass + meta + idx, with K1's time beside K3's.
-     Equality is exact (tolerance 0).
+     only / mass / mass + meta + idx, with K1's time beside K3's and the
+     device ms of both. Equality is exact (tolerance 0).
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
@@ -71,14 +79,16 @@ script exits nonzero:
      K3 serves most dispatches, on "cuda" and "cpu": identical bits.
 
 Phases 4, 7-10 and each giant run zero every kernel's launch counter
-before they start and fail unless their kernels grew (9's
-card-against-CPU check runs after its count is read) and log K2's
-launches per (B, K). The line before
+before they start and fail unless their kernels grew, K1's sorted form
+among them (9's card-against-CPU check runs after its count is read), and
+log K2's launches per (B, K). The line before
 the last is a JSON object with one entry per kernel (launches summed
 over those phases; bounds from this run's inputs at the card's 3.35 TB/s
-and 67 TFLOP/s f32 and, for K2, its longest chain of dependent adds; K2's
-entry adds its graph-replayed "device_ms" and its giant-row figures under
-"giant_rows"); the last line is
+and 67 TFLOP/s f32 and, for K2, its longest chain of dependent adds; every
+entry has its graph-replayed "device_ms"; K1's adds the sorted form's
+"sorted_ms", "sorted_device_ms", "sorted_bound_ms", "unfused_ms" and
+"sorted_launches", K2's its giant-row figures under "giant_rows"); the
+last line is
 {"ok": true, "device": {...}}.
 The card's name and power limit are printed by phase 1.
 """
@@ -99,7 +109,9 @@ DELTAS = (200.0, 340.0, 667.0)
 MULTI_ROUNDS = 3   # timed multi-vs-singles rounds after the cold multi run
 SURVEY_ROUNDS = 3  # timed rounds of the three survey modes after a warm-up
 GIANT_SEED = 515151
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}   # launches summed over the paths
+# launches summed over the paths; K1 counts both of its forms, K1s the
+# sorted form's share
+LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0}
 K2_SHAPES = {}             # K2 launches per (B, K), summed over the paths
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
@@ -305,19 +317,37 @@ def phase_build():
     log(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
 
 
-def gather_bound(cnt, desc, B, K, chans, want_idx):
-    """bound() of one K1/K3 call: each candidate row inside its run read
-    once (3 position rows and the rows its channels need), the int32
-    descriptors read once, every output slot written once; ~23 f32
-    operations per candidate (three min-image axes, the sum, the test)."""
+def gather_bound(cand, hits, live, per_desc, B, K, chans, want_idx,
+                 n_in=None):
+    """bound() of one K1/K3 call on this run's data: the 3 position rows
+    read once per candidate (a row inside its run; ``cand`` of them), the
+    rows the channels need read once per in-ball hit only (``hits``), the
+    ``per_desc`` int32 fields of each live descriptor (``live``, the
+    per-halo counts, themselves read) read once, every output slot written
+    once; ~23 f32 operations per candidate (three min-image axes, the sum,
+    the test). With ``n_in`` (the sorted form): the counts written too, and
+    the compare-exchanges of each halo's bitonic network at its padded
+    size n, n/2 x log2 n x (log2 n + 1)/2, as operations."""
+    import torch
+
     from so_tpu_torch.ops.slab_gather import CHANNEL_ROWS
 
-    rows = len({0, 1, 2} | {CHANNEL_ROWS[c] for c in chans}
+    rows = len({CHANNEL_ROWS[c] for c in chans}
                | ({3} if {"mvx", "mvy", "mvz"} & set(chans) else set()))
-    cand = int(cnt.sum(dim=1).clamp(max=K).sum())
-    nbytes = (4 * cand * rows + sum(4 * d.numel() for d in desc)
+    nbytes = (4 * 3 * cand + 4 * rows * hits
+              + 4 * (per_desc * int(live.sum()) + live.numel())
               + 4 * B * K * (1 + len(chans) + int(want_idx)))
-    return bound(nbytes, 23 * cand)
+    ops = 23 * cand
+    if n_in is not None:
+        lg = torch.ceil(torch.log2(n_in.clamp(min=1).double()))
+        ops += int((torch.exp2(lg) / 2 * lg * (lg + 1) / 2).sum())
+        nbytes += 8 * B
+    return bound(nbytes, ops)
+
+
+def candidates(cnt, K):
+    """Rows inside their runs that a gather of K slots a halo can reach."""
+    return int(cnt.sum(dim=1).clamp(max=K).sum())
 
 
 def make_standard_box():
@@ -331,59 +361,137 @@ def make_standard_box():
     return pos, mass, vel, centers, rgtp
 
 
+FULL_CHANS = ("mass", "mvx", "mvy", "mvz", "meta")
+# the sorted form's shapes beside (4096, 4096): (B, K, ladder rung)
+SORTED_SHAPES = [(16384, 512, 1), (1024, 1 << 14, 6), (3, 8192, 6)]
+
+
+def k1_case(g, level, S, c, r, K, chans, want_idx, slotted, tag):
+    """One K1 shape on the card: the sorted form (and, with ``slotted``,
+    the slotted one) bit for bit against its plain version, and timed: ms
+    by CUDA events, device ms by graph replay, the bound; for the sorted
+    form also the route it replaces. Returns the record of the [K1] line
+    it logs."""
+    import torch
+
+    from so_tpu_torch.ops import slab_gather
+    from so_tpu_torch.ops.gather import cell_ranges
+
+    B, chunk = c.shape[0], g.chunk
+    st, cnt, q, total = cell_ranges(g, level, c, r, r * r, S, align=chunk)
+    desc = slab_gather.chunk_descriptors(st, cnt, q, K, chunk)
+    args = (g.soa8t, *desc, c, g.period, r * r, K, chunk, chans, want_idx)
+    reps = 20
+    rec = dict(shape=f"B={B} K={K} {tag}", library_ms=None)
+    line = f"[K1] B={B} K={K} level={level} S={S} {tag}:"
+    err = 0.0
+    if slotted:
+        got = slab_gather.slab_gather_rows(*args)
+        want = slab_gather.slab_gather_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("d2", "channels", "idx"), got, want):
+            if a is not None:
+                assert_same_bits(f"K1 {name}", a, b)
+                err = max(err, max_abs_err(a, b))
+        hits = int(torch.isfinite(got[0]).sum())
+        del got, want
+        bms, by = gather_bound(candidates(cnt, K), hits, desc[3], 3, B, K,
+                               chans, want_idx)
+        rec.update(
+            ms=cuda_ms(lambda: slab_gather.slab_gather_rows(*args), reps),
+            device_ms=graph_ms(lambda: slab_gather.slab_gather_rows(*args),
+                               reps),
+            plain_ms=cuda_ms(lambda: slab_gather.slab_gather_plain(*args), 3),
+            bound_ms=bms, bound_by=by)
+        line += (f" slotted exact, kernel {rec['ms']:.4f} ms (events) "
+                 f"{rec['device_ms']:.4f} ms (graph) plain "
+                 f"{rec['plain_ms']:.4f} ms bound {bms:.4f} ms ({by});")
+    got = slab_gather.slab_gather_sorted_rows(*args)
+    want = slab_gather.slab_gather_sorted_plain(*args)
+    torch.cuda.synchronize()
+    pairs = [("d2", got[0], want[0]), ("n_in", got[3], want[3])]
+    pairs += [(f"channel {i}", a, b)
+              for i, (a, b) in enumerate(zip(got[1], want[1]))]
+    if want_idx:
+        pairs.append(("idx", got[2], want[2]))
+    if len(got[1]) != len(chans) or len(want[1]) != len(chans):
+        raise AssertionError("K1 sorted: wrong channel count")
+    for name, a, b in pairs:
+        assert_same_bits(f"K1 sorted {name}", a, b)
+        err = max(err, max_abs_err(a, b))
+    n_in = got[3]
+    ties = int(((got[0][:, 1:] == got[0][:, :-1])
+                & torch.isfinite(got[0][:, 1:])).sum())
+    del got, want, pairs
+
+    def unfused():
+        return slab_gather.sort_rows(*slab_gather.slab_gather_rows(*args))
+
+    sbms, sby = gather_bound(candidates(cnt, K), int(n_in.sum()), desc[3], 3,
+                             B, K, chans, want_idx, n_in)
+    rec.update(
+        max_abs_err=err,
+        sorted_ms=cuda_ms(
+            lambda: slab_gather.slab_gather_sorted_rows(*args), reps),
+        sorted_device_ms=graph_ms(
+            lambda: slab_gather.slab_gather_sorted_rows(*args), reps),
+        unfused_ms=cuda_ms(unfused, reps),
+        unfused_device_ms=graph_ms(unfused, reps),
+        sorted_bound_ms=sbms, sorted_bound_by=sby)
+    log(f"{line} sorted exact (d2, channels, idx, n_in; {ties} equal-d2 "
+        f"neighbours), max_abs_err {err}, kernel {rec['sorted_ms']:.4f} ms "
+        f"(events) {rec['sorted_device_ms']:.4f} ms (graph) bound "
+        f"{sbms:.4f} ms ({sby}); unfused route {rec['unfused_ms']:.4f} ms "
+        f"(events) {rec['unfused_device_ms']:.4f} ms (graph); in-ball "
+        f"{int(n_in.sum())} of {candidates(cnt, K)} "
+        f"candidates, largest n_in {int(n_in.max())}, "
+        f"{int((total > K).sum())} rows past K")
+    if slotted and ties == 0 and B == 4096:
+        raise AssertionError("K1 sorted: the shape holds no equal d2")
+    return rec
+
+
 def phase_kernels(box):
-    """K1 against its plain version at main-path shapes."""
+    """K1's two forms against their plain versions at main-path shapes."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from so_tpu_torch.engine.solver import ladder_radius, _pick_level_span
-    from so_tpu_torch.ops import slab_gather
-    from so_tpu_torch.ops.gather import cell_ranges
     from so_tpu_torch.ops.grid import build_grid
 
     dev = torch.device("cuda")
     pos, mass, vel, centers, rgtp = box
+    pos = pos.copy()
+    pos[:48] = centers[0]       # equal d2 (and +0.0) in the first halo
     grid = build_grid(pos, mass, vel=vel, device=dev)
-    B, K = min(4096, centers.shape[0]), 4096
-    c = torch.as_tensor(centers[:B], device=dev)
-    radii_np = ladder_radius(rgtp[:B], np.ones(B, np.int32))  # first rung
-    r = torch.as_tensor(radii_np, device=dev)
-    level, S = _pick_level_span(grid, float(radii_np.max()))
+
+    def balls(B, rung):
+        radii = ladder_radius(rgtp[:B], np.full(B, rung, np.int32))
+        return (torch.as_tensor(centers[:B], device=dev),
+                torch.as_tensor(radii, device=dev),
+                *_pick_level_span(grid, float(radii.max())))
+
     rows = {}
+    c, r, level, S = balls(min(4096, centers.shape[0]), 1)   # first rung
     for chunk in (256, 128):
         g = grid if chunk == grid.chunk else dataclasses.replace(
             grid, chunk=chunk, soa8t=grid.soa8t[:, :grid.n + chunk]
             .contiguous())
-        st, cnt, q, total = cell_ranges(g, level, c, r, r * r, S,
-                                        align=chunk)
-        desc = slab_gather.chunk_descriptors(st, cnt, q, K, chunk)
+        for chans, want_idx in (((), False), (("mass",), False),
+                                (("mass", "meta"), True), (FULL_CHANS, True)):
+            tag = f"chunk={chunk} nch={len(chans)} idx={int(want_idx)}"
+            rows[(chunk, len(chans))] = k1_case(
+                g, level, S, c, r, 4096, chans, want_idx, True, tag)
+    for B, K, rung in SORTED_SHAPES:
+        c, r, level, S = balls(B, rung)
         for chans, want_idx in (((), False), (("mass",), False),
                                 (("mass", "meta"), True),
-                                (("mass", "mvx", "mvy", "mvz", "meta"), True)):
-            args = (g.soa8t, *desc, c, g.period, r * r, K, chunk, chans,
-                    want_idx)
-            got = slab_gather.slab_gather_rows(*args)
-            want = slab_gather.slab_gather_plain(*args)
-            torch.cuda.synchronize()
-            err = 0.0
-            for name, a, b in zip(("d2", "channels", "idx"), got, want):
-                if a is None:
-                    continue
-                assert_same_bits(f"K1 {name}", a, b)
-                err = max(err, max_abs_err(a, b))
-            ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*args), 20)
-            plain_ms = cuda_ms(lambda: slab_gather.slab_gather_plain(*args), 3)
-            bms, by = gather_bound(cnt, desc[:3], B, K, chans, want_idx)
-            tag = f"chunk={chunk} nch={len(chans)} idx={int(want_idx)}"
-            log(f"[K1] B={B} K={K} level={level} S={S} {tag}: exact, "
-                f"max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} "
-                f"ms bound {bms:.4f} ms ({by}) ({int((total > K).sum())} "
-                "rows past K)")
-            rows[(chunk, len(chans))] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=f"B={B} K={K} {tag}")
+                                (("mass", "meta", "mvx"), True)):
+            tag = (f"chunk={grid.chunk} nch={len(chans)} "
+                   f"idx={int(want_idx)}")
+            k1_case(grid, level, S, c, r, K, chans, want_idx, B == 3, tag)
     k1 = rows[(256, 1)]       # the general-mass solve stage's shape
     del grid
     torch.cuda.empty_cache()
@@ -515,21 +623,30 @@ def phase_k3(giant):
                     assert_same_bits(f"K3 {name}", a, p)
                     assert_same_bits(f"K3 {name} against K1", a, b)
                     err = max(err, max_abs_err(a, p))
+                hits = int(torch.isfinite(got[0]).sum())
                 del got, plain, k1
                 ms = cuda_ms(lambda: piece_gather.piece_gather_rows(*a3), 5)
                 k1_ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*a1), 5)
+                dev_ms = graph_ms(
+                    lambda: piece_gather.piece_gather_rows(*a3), 5)
+                k1_dev_ms = graph_ms(
+                    lambda: slab_gather.slab_gather_rows(*a1), 5)
                 plain_ms = cuda_ms(
                     lambda: piece_gather.piece_gather_plain(*a3), 1)
-                bms, by = gather_bound(cnt, pdesc[:5], B, K, chans, want_idx)
+                bms, by = gather_bound(candidates(cnt, K), hits, pdesc[5], 5,
+                                       B, K, chans, want_idx)
                 tag = f"B={B} K={K} nch={len(chans)} idx={int(want_idx)}"
                 log(f"[K3] {tag} level={level} S={S}: equal to its plain "
-                    f"version and to K1, max_abs_err {err}; K3 {ms:.4f} ms, "
-                    f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bms:.4f} ms ({by}); {int((total > K).sum())} of {B} "
-                    "rows past K")
+                    f"version and to K1, max_abs_err {err}; K3 {ms:.4f} ms "
+                    f"(events) {dev_ms:.4f} ms (graph), K1 {k1_ms:.4f} ms "
+                    f"(events) {k1_dev_ms:.4f} ms (graph), plain "
+                    f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+                    f"{int((total > K).sum())} of {B} rows past K")
                 rows[(B, K, len(chans))] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=None, k1_ms=k1_ms, shape=tag)
+                    max_abs_err=err, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, k1_ms=k1_ms, k1_device_ms=k1_dev_ms,
+                    shape=tag)
                 torch.cuda.empty_cache()
     del grid
     torch.cuda.empty_cache()
@@ -582,14 +699,15 @@ def zero_counts():
     from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
 
     slab_gather.launches = seqsum.launches = piece_gather.launches = 0
+    slab_gather.sorted_launches = 0
     seqsum.shape_launches.clear()
 
 
 def read_counts():
     from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
 
-    return dict(K1=slab_gather.launches, K2=seqsum.launches,
-                K3=piece_gather.launches)
+    return dict(K1=slab_gather.launches, K1s=slab_gather.sorted_launches,
+                K2=seqsum.launches, K3=piece_gather.launches)
 
 
 def read_k2_shapes(tag):
@@ -605,7 +723,7 @@ def read_k2_shapes(tag):
         K2_SHAPES[key] = K2_SHAPES.get(key, 0) + n
 
 
-def counted(tag, fn, *a, need=("K1", "K2")):
+def counted(tag, fn, *a, need=("K1", "K1s", "K2")):
     """Run one path with every kernel's launch counter zeroed just before;
     fail unless the path's kernels (``need``) grew; add the counts to
     LAUNCHES."""
@@ -677,7 +795,7 @@ def phase_main_path(box):
     counts = read_counts()
     log(f"[main] launches in the main-path runs: {counts}")
     read_k2_shapes("main")
-    if min(counts["K1"], counts["K2"]) <= 0:
+    if min(counts["K1"], counts["K1s"], counts["K2"]) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     return counts
 
@@ -1097,8 +1215,8 @@ def giant_inputs(giant, mass):
 
 def phase_giant(giant):
     """run_so on the giant box on "cuda", general then uniform masses, each
-    with every launch counter zeroed first: K1 and K3 must run in both, K2
-    in the general one; the 4 giant halos against the brute-force oracle
+    with every launch counter zeroed first: K1 (its sorted form too) and K3
+    must run in both, K2 in the general one; the 4 giant halos against the brute-force oracle
     (tests/reference_oracle.py)."""
     import numpy as np
     import torch
@@ -1109,7 +1227,7 @@ def phase_giant(giant):
     for tag, mass in giant["masses"]:
         ps, catalog = giant_inputs(giant, mass)
         torch.cuda.reset_peak_memory_stats()
-        need = ("K1", "K3") + (("K2",) if tag == "general" else ())
+        need = ("K1", "K1s", "K3") + (("K2",) if tag == "general" else ())
         out, e2e = counted(f"giant {tag}", run, ps, catalog, (), "cuda",
                            need=need)
         codes = check_run(f"giant {tag}", out, catalog().n)
@@ -1245,7 +1363,8 @@ def main():
         dict(name="slab_gather", route="cuda",
              source="so_tpu_torch/csrc/slab_gather.cu",
              replaces="so_tpu/ops/pallas_gather.py:325",
-             launches=LAUNCHES["K1"], **k1),
+             launches=LAUNCHES["K1"], sorted_launches=LAUNCHES["K1s"],
+             **k1),
         dict(name="seqsum", route="cuda",
              source="so_tpu_torch/csrc/seqsum.cu",
              replaces="so_tpu/ops/seqsum.py:18",

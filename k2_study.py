@@ -64,8 +64,8 @@ def nvcc_lib(name, src):
 
     out = _cuda.BUILD_DIR / f"{name}.so"
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
-                        str(src)], capture_output=True, text=True)
+    r = subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
+                        str(out), str(src)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
     return ctypes.CDLL(str(out))

@@ -14,10 +14,10 @@
 // multiply, meta; 0 when out of ball) and the source row (int32, -1 when
 // out of ball). Chunk slots at or past n_chunks[b] are pad.
 //
-// Exactness: rintf (half to even, as jnp.round), __fdiv_rn, and the
-// __fmul_rn/__fadd_rn/__fsub_rn intrinsics, as in K1, so no FMA
-// contraction can occur (the library is also built with -fmad=false).
-// The output equals K1's bit for bit.
+// Exactness: d2 is K1's, from the one definition both kernels share
+// (gather_body.cuh: rintf, __fdiv_rn and the __fmul_rn/__fadd_rn/__fsub_rn
+// intrinsics, so no FMA contraction can occur; the library is also built
+// with -fmad=false). The output equals K1's bit for bit.
 //
 // What bounds it on the H100: memory traffic, as K1 (~3 flops per byte):
 // 4 B x 3 position rows (+ the channel rows) read per candidate slot,
@@ -43,12 +43,13 @@
 // specialization, and fusing the row sort onto the output.
 
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
+
+#include "gather_body.cuh"
+
+using namespace so_gather;
 
 namespace {
 
-constexpr int kMaxChan = 5;
 constexpr int kPieceW = 2;          // chunks per piece: PIECE_W in Python
 constexpr int kPiecesPerCta = 8;
 constexpr int kStages = 3;          // ring depth
@@ -124,11 +125,7 @@ __global__ void __launch_bounds__(kThreads) piece_gather_kernel(
     }
   };
 
-  const float cx = centers[b * 3 + 0];
-  const float cy = centers[b * 3 + 1];
-  const float cz = centers[b * 3 + 2];
-  const float px = period[0], py = period[1], pz = period[2];
-  const float rr = r2[b];
+  const Ball ball = load_ball(centers, period, r2, b);
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -154,18 +151,9 @@ __global__ void __launch_bounds__(kThreads) piece_gather_kernel(
       float vals[kMaxChan] = {0.f, 0.f, 0.f, 0.f, 0.f};
       int row_out = -1;
       if (row >= l && row < h && row < np_cols) {
-        const float x = st[col];
-        const float y = st[pw + col];
-        const float z = st[2 * pw + col];
-        const float dx = __fsub_rn(
-            __fsub_rn(cx, __fmul_rn(px, rintf(__fdiv_rn(__fsub_rn(cx, x), px)))), x);
-        const float dy = __fsub_rn(
-            __fsub_rn(cy, __fmul_rn(py, rintf(__fdiv_rn(__fsub_rn(cy, y), py)))), y);
-        const float dz = __fsub_rn(
-            __fsub_rn(cz, __fmul_rn(pz, rintf(__fdiv_rn(__fsub_rn(cz, z), pz)))), z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        if (d2 <= rr) {
+        const float d2 = min_image_d2(ball, st[col], st[pw + col],
+                                      st[2 * pw + col]);
+        if (d2 <= ball.r2) {
           d2v = d2;
           row_out = (int)row;
           // unrolled over the fixed maximum so vals[] stays in registers

@@ -1,11 +1,12 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu, *.cuh).
 
-Every source under ``so_tpu_torch/csrc`` is compiled by ``nvcc`` into ONE
-shared library with a plain C interface, loaded with ctypes. The library
-lands in ``so_tpu_torch/_build/`` (git-ignored) under a name keyed by a
-hash of the sources and flags, so an edited kernel rebuilds on its next
-use and an unchanged one loads in milliseconds. Nothing here runs at
-import time: the first CUDA launch builds.
+Every ``.cu`` source under ``so_tpu_torch/csrc`` is compiled by its own
+``nvcc`` (all started together) and the objects are linked into ONE shared
+library with a plain C interface, loaded with ctypes. The library lands in
+``so_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash of the
+sources, the headers and the flags, so an edited kernel or header rebuilds
+on its next use and an unchanged one loads in milliseconds. Nothing here
+runs at import time: the first CUDA launch builds.
 
 Flags: ``-fmad=false`` forbids FMA contraction (the kernels reproduce the
 JAX package's f32 arithmetic bit for bit); ``--use_fast_math`` is never
@@ -26,7 +27,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -38,6 +39,9 @@ _SIGNATURES = {
     #  chunk, nchan, c0..c4, out, out_idx, stream)
     "so_slab_gather": [_P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L, _I,
                        _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # so_slab_gather's arguments with n_in and the block size before stream
+    "so_slab_gather_sorted": [_P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L,
+                              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # (soa, np_cols, src, t0, v, lo, hi, n_pieces, n_chunks, np_max,
     #  centers, period, r2, B, K, chunk, nchan, c0..c4, out, out_idx, stream)
     "so_piece_gather": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -56,29 +60,51 @@ def nvcc() -> str:
     return path
 
 
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """The keyed output path for the current sources and flags."""
+    """The keyed output path for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"so_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels if this source set has no library yet."""
+    """Compile the kernels if this source set has no library yet: one
+    nvcc per source, in parallel, then the link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + r.stdout + r.stderr)
-    os.replace(tmp, out)       # atomic: a concurrent loader never sees half
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for o, src in zip(objs, sources())]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    cmds.append([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *(str(o) for o in objs)])
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        results = [(c, p.communicate()[0], p.returncode)
+                   for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            r = subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            results.append((cmds[-1], r.stdout, r.returncode))
+        for cmd, text, rc in results:
+            if rc != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + text)
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

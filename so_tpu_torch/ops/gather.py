@@ -8,8 +8,10 @@
      CHUNK-aligned footprints out densely (cell_ranges, align=chunk),
   4. a kernel computes min-image distances and channels per slot
      (unsorted_gather): K1 up to PIECE_K_MIN slots, K3 above (the giant
-     tiers; the same function and slot layout, so the same bits), and the
-     rows are sorted by distance (slab_gather).
+     tiers; the same function and slot layout, so the same bits). Where
+     the rows are wanted sorted by distance (slab_gather), K1's sorted
+     form emits them so up to SORTED_K_MAX slots; longer rows are gathered
+     slotted and sorted by torch.sort.
 
 Capacity K and cube side S are per-dispatch values; the host escalates K
 when a ball overflows, mirroring the reference's nnList regrow.
@@ -23,11 +25,18 @@ import torch
 
 from .grid import CellGrid, morton_encode
 from .piece_gather import piece_descriptors, piece_gather_rows
-from .slab_gather import chunk_descriptors, slab_gather_rows
+from .slab_gather import (chunk_descriptors, slab_gather_rows,
+                          slab_gather_sorted_rows, sort_rows)
 
 # Dispatches of more slots than this go through K3, the rest through K1:
 # so_tpu's K_SLAB_MAX, the capacity where it leaves its per-chunk kernel.
 PIECE_K_MIN = 1 << 15
+
+# Sorted gathers of at most this many slots (and no more than PIECE_K_MIN)
+# go through K1's sorted form (one block a halo, the row sorted in shared
+# memory); longer rows take a slotted kernel and a torch.sort. 2^14 is also
+# the most the kernel takes: 8 B a slot of one block's shared memory.
+SORTED_K_MAX = 1 << 14
 
 
 def min_image(c, p, period):
@@ -129,15 +138,11 @@ def cell_ranges(grid: CellGrid, level: int, centers, radii, r2_mask, S: int,
     return st, cnt, q, total
 
 
-def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
-                    K: int, S: int, chans: tuple = (), want_idx: bool = False,
-                    payload=None):
-    """(d2, channels, idx, overflow) in the kernels' slot order, no row
-    sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
-    names (slab_gather.CHANNEL_ROWS); ``payload`` replaces the grid's
-    (-pot puts phi in the mass row)."""
-    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                                    align=grid.chunk)
+def _slotted(grid: CellGrid, ranges, centers, r2_mask, K: int, chans: tuple,
+             want_idx: bool, payload=None):
+    """(d2, channels, idx) in slot order from cell_ranges' output: K1 for
+    K <= PIECE_K_MIN, else K3."""
+    st, cnt, q, _ = ranges
     soa = grid.soa8t if payload is None else payload
     if K > PIECE_K_MIN:
         desc = piece_descriptors(st, cnt, q, K, grid.chunk)
@@ -145,9 +150,22 @@ def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     else:
         desc = chunk_descriptors(st, cnt, q, K, grid.chunk)
         rows = slab_gather_rows
-    d2, ch, idx = rows(soa, *desc, centers, grid.period, r2_mask, K,
-                       grid.chunk, chans, want_idx)
-    return d2, ch, idx, total > K
+    return rows(soa, *desc, centers, grid.period, r2_mask, K, grid.chunk,
+                chans, want_idx)
+
+
+def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
+                    K: int, S: int, chans: tuple = (), want_idx: bool = False,
+                    payload=None):
+    """(d2, channels, idx, overflow) in the kernels' slot order, no row
+    sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
+    names (slab_gather.CHANNEL_ROWS); ``payload`` replaces the grid's
+    (-pot puts phi in the mass row)."""
+    ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
+                         align=grid.chunk)
+    d2, ch, idx = _slotted(grid, ranges, centers, r2_mask, K, chans,
+                           want_idx, payload)
+    return d2, ch, idx, ranges[3] > K
 
 
 class SlabGatherResult(NamedTuple):
@@ -159,8 +177,10 @@ class SlabGatherResult(NamedTuple):
 
 def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
                 K: int, S: int, channels: tuple = ("mass",)) -> SlabGatherResult:
-    """Sorted (d2, channel...) stacks per halo (unsorted_gather, then a
-    stable row sort).
+    """Sorted (d2, channel...) stacks per halo: K1's sorted form up to
+    SORTED_K_MAX slots, else the slotted gather and a stable row sort
+    (slab_gather.sort_rows). Either way the order is the stable sort's
+    over the kernels' slot layout, on the card and on the CPU.
 
     ``channels`` is drawn from {"mass", "mv", "meta", "idx"}: "mv" gives a
     (B, K, 3) m*v stack, "idx" the exact int32 source row (-1 off-ball).
@@ -173,26 +193,29 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
             kernel_chans.append(ch)
         elif ch != "idx":
             raise ValueError(ch)
-    d2, ch, idx, overflow = unsorted_gather(
-        grid, level, centers, radii, r2_mask, K, S, tuple(kernel_chans),
-        want_idx="idx" in channels)
-    n_in = torch.isfinite(d2).sum(dim=1)
-    # Stable sort: tie order at equal d2 is free in the reference (its NR
-    # sort is unstable, docs/PARITY.md #3), and a stable sort over the
-    # kernel's deterministic slot layout makes the CPU and GPU runs of
-    # this port agree at ties as well.
-    d2_s, order = torch.sort(d2, dim=1, stable=True)
+    kernel_chans = tuple(kernel_chans)
+    want_idx = "idx" in channels
+    ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
+                         align=grid.chunk)
+    if K <= min(SORTED_K_MAX, PIECE_K_MIN):    # K3's tiers stay K3's
+        st, cnt, q, _ = ranges
+        d2_s, ch, idx, n_in = slab_gather_sorted_rows(
+            grid.soa8t, *chunk_descriptors(st, cnt, q, K, grid.chunk),
+            centers, grid.period, r2_mask, K, grid.chunk, kernel_chans,
+            want_idx)
+    else:
+        d2_s, ch, idx, n_in = sort_rows(*_slotted(
+            grid, ranges, centers, r2_mask, K, kernel_chans, want_idx))
     out = []
     i = 0
     for c in channels:
         if c == "idx":
-            out.append(torch.gather(idx, 1, order))
+            out.append(idx)
         elif c == "mv":
-            out.append(torch.stack([torch.gather(ch[:, i + k], 1, order)
-                                    for k in range(3)], dim=-1))
+            out.append(torch.stack(ch[i:i + 3], dim=-1))
             i += 3
         else:
-            out.append(torch.gather(ch[:, i], 1, order))
+            out.append(ch[i])
             i += 1
     return SlabGatherResult(d2=d2_s, channels=tuple(out), n_in=n_in,
-                            overflow=overflow)
+                            overflow=ranges[3] > K)

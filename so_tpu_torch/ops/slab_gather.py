@@ -7,13 +7,24 @@ CHUNK-aligned pieces laid out densely: chunk t reads payload columns
 [a0_t + t*CHUNK, +CHUNK) and fills output slots [t*CHUNK, (t+1)*CHUNK),
 masking rows outside the run's [lo_t, hi_t).
 
-``slab_gather_rows`` is the wrapper: a CUDA tensor launches the kernel in
-csrc/slab_gather.cu, a CPU tensor runs ``slab_gather_plain`` — the same
-computation as a vectorized torch walk over (B, NC, CHUNK) source rows.
+The kernel has two forms (csrc/slab_gather.cu), each with its wrapper and
+its plain torch version here. A CUDA payload launches the kernel, a CPU
+payload runs the plain version; nothing on a CUDA payload gives way to the
+plain version.
 
-Output: d2 (B, K) f32 (+inf on pad / out-of-ball slots), channels
-(B, nchan, K) f32 in the requested order (0 off-ball), and the source row
-idx (B, K) i32 (-1 off-ball) when asked for.
+``slab_gather_rows`` (plain: ``slab_gather_plain``, a vectorized torch walk
+over (B, NC, CHUNK) source rows) is the slotted form: d2 (B, K) f32 (+inf
+on pad / out-of-ball slots), channels (B, nchan, K) f32 in the requested
+order (0 off-ball), and the source row idx (B, K) i32 (-1 off-ball) when
+asked for.
+
+``slab_gather_sorted_rows`` (plain: ``slab_gather_sorted_plain``, the
+slotted plain version, a stable row sort and the gathers) is the sorted
+form: each row already sorted by d2, ties in slot order, with the in-ball
+count: d2 (B, K) ascending with +inf from n_in on, a list of (B, K)
+channels and idx permuted alongside (0 and -1 from n_in on), and n_in (B,)
+i64. On the card a row's keys must fit one block's shared memory (K <=
+2^14, else the launch fails; ops/gather.SORTED_K_MAX routes by it).
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ from . import _cuda
 # velocities that the kernel multiplies by the mass row (m*v)
 CHANNEL_ROWS = {"mass": 3, "mvx": 4, "mvy": 5, "mvz": 6, "meta": 7}
 
-launches = 0     # kernel launches of slab_gather_rows (CUDA only)
+launches = 0          # kernel launches of both forms (CUDA only)
+sorted_launches = 0   # of which the sorted form's
 
 
 def chunk_descriptors(st, cnt, q, K: int, chunk: int):
@@ -34,29 +46,30 @@ def chunk_descriptors(st, cnt, q, K: int, chunk: int):
 
     Returns per (halo, chunk t < NC) a0 (source column = a0 + t*chunk),
     lo/hi (valid source-row range) and the per-halo chunk count n_total,
-    all int64. Chunks at or beyond n_total hold garbage that is never
-    read. Run offsets q at or past NC chunks are dropped (the JAX
+    all int32 and contiguous, as the kernels read them (payload rows fit
+    int32, check_inputs). Chunks at or beyond n_total hold garbage that is
+    never read. Run offsets q at or past NC chunks are dropped (the JAX
     scatter-add's mode="drop"): they land in a spill column cut off
     before the prefix sum.
     """
     B, C = st.shape
     NC = (K + chunk) // chunk
-    astart = (st // chunk) * chunk
-    foot = torch.where(cnt > 0, ((st % chunk) + cnt + (chunk - 1))
-                       // chunk * chunk, torch.zeros_like(cnt))
+    i32 = torch.int32
+    off = st % chunk
+    nchunk = torch.where(cnt > 0, (off + cnt + (chunk - 1)) // chunk,
+                         torch.zeros_like(cnt))
     qc = torch.clamp(q // chunk, max=NC)          # NC = the spill column
-    n_total = torch.clamp((foot // chunk).sum(dim=1), max=NC)
-
-    def seg_const(vals):
-        """Piecewise-constant per-run value expanded to chunk slots."""
-        diffs = torch.cat([vals[:, :1], vals[:, 1:] - vals[:, :-1]], dim=1)
-        arr = torch.zeros((B, NC + 1), dtype=vals.dtype, device=vals.device)
-        arr.scatter_add_(1, qc, diffs)
-        return torch.cumsum(arr[:, :NC], dim=1)
-
-    a0 = seg_const(astart - qc * chunk)
-    lo = seg_const(st)
-    hi = seg_const(st + cnt)
+    n_total = torch.clamp(nchunk.sum(dim=1, dtype=i32), max=NC)
+    # the three piecewise-constant per-run values, expanded to chunk slots
+    # together: differences scattered to each run's first chunk, then a
+    # prefix sum. The int64 run values are narrowed as they are written.
+    vals = torch.stack([st - off - qc * chunk, st, st + cnt])   # (3, B, C)
+    diffs = torch.empty((3, B, C), dtype=i32, device=st.device)
+    diffs[:, :, :1] = vals[:, :, :1]
+    torch.sub(vals[:, :, 1:], vals[:, :, :-1], out=diffs[:, :, 1:])
+    arr = torch.zeros((3, B, NC + 1), dtype=i32, device=st.device)
+    arr.scatter_add_(2, qc.expand(3, B, C), diffs)
+    a0, lo, hi = torch.cumsum(arr[:, :, :NC], dim=2, dtype=i32).unbind(0)
     return a0, lo, hi, n_total
 
 
@@ -120,6 +133,32 @@ def slab_gather_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
     return slots(d2), ch, None if idx is None else slots(idx)
 
 
+def sort_rows(d2, ch, idx):
+    """A stable row sort of the slotted output by d2: (d2 (B, K) ascending,
+    the list of (B, K) channels and idx permuted alongside, n_in (B,) i64,
+    the count of finite d2).
+
+    Stable: tie order at equal d2 is free in the reference (its NR sort is
+    unstable, docs/PARITY.md #3), and a stable sort over the kernel's
+    deterministic slot layout makes the CPU and GPU runs of this port
+    agree at ties as well."""
+    n_in = torch.isfinite(d2).sum(dim=1)
+    d2_s, order = torch.sort(d2, dim=1, stable=True)
+    chans = [torch.gather(ch[:, i], 1, order) for i in range(ch.shape[1])]
+    return (d2_s, chans, None if idx is None else torch.gather(idx, 1, order),
+            n_in)
+
+
+def slab_gather_sorted_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
+                             K: int, chunk: int, chans: tuple = (),
+                             want_idx: bool = False):
+    """The sorted kernel's computation in plain torch: the slotted plain
+    version, then sort_rows."""
+    return sort_rows(*slab_gather_plain(soa8t, a0, lo, hi, n_total, centers,
+                                        period, r2, K, chunk, chans,
+                                        want_idx))
+
+
 def check_inputs(name: str, soa8t, B: int, chunk: int, tensors) -> None:
     """The checks K1 and K3 share: payload layout, halo count, chunk, and
     every input on the payload's device."""
@@ -136,51 +175,95 @@ def check_inputs(name: str, soa8t, B: int, chunk: int, tensors) -> None:
                          "device")
 
 
-def _slab_gather_cuda(soa8t, a0, lo, hi, n_total, centers, period, r2,
-                      K: int, chunk: int, chans: tuple, want_idx: bool):
-    global launches
-    codes = channel_codes(chans)
+def _check_k1(soa8t, a0, lo, hi, n_total, centers, period, r2, K: int,
+              chunk: int) -> None:
+    """What both forms of K1 take: chunk_descriptors' int32 descriptors and
+    f32 centers, period and r2, all contiguous (the kernels read them as
+    they are; nothing is converted)."""
     B, NC = a0.shape
-    dev = soa8t.device
-    check_inputs("K1", soa8t, B, chunk,
-                 (a0, lo, hi, n_total, centers, period, r2))
+    ints, flts = (a0, lo, hi, n_total), (centers, period, r2)
+    check_inputs("K1", soa8t, B, chunk, ints + flts)
     if (lo.shape != (B, NC) or hi.shape != (B, NC) or n_total.shape != (B,)
             or centers.shape != (B, 3) or period.shape != (3,)
             or r2.shape != (B,) or not 0 < K <= NC * chunk):
         raise ValueError("K1 inputs disagree in shape (see "
                          "chunk_descriptors)")
-    # The converted copies die when this returns, before the kernel may
-    # have run: safe, because the caching allocator hands their memory
-    # only to later work on the same stream.
-    i32 = [x.to(torch.int32).contiguous() for x in (a0, lo, hi, n_total)]
-    f32 = [x.to(torch.float32).contiguous() for x in (centers, period, r2)]
-    nf = 1 + len(codes)
-    out = torch.empty((B, nf, K), dtype=torch.float32, device=dev)
-    idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
-           else None)
-    c = codes + [0] * (5 - len(codes))
-    lib = _cuda.library()
-    rc = lib.so_slab_gather(
-        soa8t.data_ptr(), soa8t.shape[1], i32[0].data_ptr(),
-        i32[1].data_ptr(), i32[2].data_ptr(), i32[3].data_ptr(), NC,
-        f32[0].data_ptr(), f32[1].data_ptr(), f32[2].data_ptr(), B, K, chunk,
-        len(codes), *c, out.data_ptr(),
-        idx.data_ptr() if idx is not None else None,
-        _cuda.stream_ptr(dev))
-    _cuda.check(rc, "so_slab_gather")
-    launches += 1
-    return out[:, 0], out[:, 1:], idx
+    if (any(x.dtype != torch.int32 for x in ints)
+            or any(x.dtype != torch.float32 for x in flts)
+            or not all(x.is_contiguous() for x in ints + flts)):
+        raise ValueError("K1 takes contiguous int32 descriptors (see "
+                         "chunk_descriptors) and contiguous f32 centers, "
+                         "period and r2")
+
+
+def _launch_args(soa8t, a0, lo, hi, n_total, centers, period, r2, K: int,
+                 chunk: int, codes: list):
+    """The C entry points' common leading arguments."""
+    return (soa8t.data_ptr(), soa8t.shape[1], a0.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), n_total.data_ptr(), a0.shape[1],
+            centers.data_ptr(), period.data_ptr(), r2.data_ptr(),
+            a0.shape[0], K, chunk, len(codes), *codes,
+            *([0] * (5 - len(codes))))
 
 
 def slab_gather_rows(soa8t, a0, lo, hi, n_total, centers, period, r2,
                      K: int, chunk: int, chans: tuple = (),
                      want_idx: bool = False):
-    """K1 on the payload's device: the CUDA kernel for a CUDA payload, the
-    plain torch version for a CPU one. Returns (d2, channels, idx)."""
-    if soa8t.device.type == "cuda":
-        return _slab_gather_cuda(soa8t, a0, lo, hi, n_total, centers,
-                                 period, r2, K, chunk, chans, want_idx)
-    if soa8t.device.type != "cpu":
+    """K1's slotted form on the payload's device: the CUDA kernel for a
+    CUDA payload, the plain torch version for a CPU one. Returns (d2,
+    channels, idx)."""
+    global launches
+    args = (soa8t, a0, lo, hi, n_total, centers, period, r2, K, chunk)
+    codes = channel_codes(chans)
+    _check_k1(*args)
+    if soa8t.device.type == "cpu":
+        return slab_gather_plain(*args, chans, want_idx)
+    if soa8t.device.type != "cuda":
         raise ValueError(f"no slab gather for device {soa8t.device}")
-    return slab_gather_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,
-                             K, chunk, chans, want_idx)
+    B, dev = a0.shape[0], soa8t.device
+    out = torch.empty((B, 1 + len(codes), K), dtype=torch.float32, device=dev)
+    idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
+           else None)
+    rc = _cuda.library().so_slab_gather(
+        *_launch_args(*args, codes), out.data_ptr(),
+        idx.data_ptr() if want_idx else None, _cuda.stream_ptr(dev))
+    _cuda.check(rc, "so_slab_gather")
+    launches += 1
+    return out[:, 0], out[:, 1:], idx
+
+
+def sorted_threads(K: int) -> int:
+    """Block size of the sorted kernel: a block holds 8 B x K of shared
+    memory, so short rows leave room for several small blocks on an SM
+    and long rows get a larger block (k1_study.py times the choices)."""
+    return (64 if K <= 512 else 128 if K <= 1024 else 256 if K <= 4096
+            else 512)
+
+
+def slab_gather_sorted_rows(soa8t, a0, lo, hi, n_total, centers, period, r2,
+                            K: int, chunk: int, chans: tuple = (),
+                            want_idx: bool = False):
+    """K1's sorted form on the payload's device: the CUDA kernel for a
+    CUDA payload, the plain torch version for a CPU one. Returns (d2,
+    list of channels, idx, n_in)."""
+    global launches, sorted_launches
+    args = (soa8t, a0, lo, hi, n_total, centers, period, r2, K, chunk)
+    codes = channel_codes(chans)
+    _check_k1(*args)
+    if soa8t.device.type == "cpu":
+        return slab_gather_sorted_plain(*args, chans, want_idx)
+    if soa8t.device.type != "cuda":
+        raise ValueError(f"no slab gather for device {soa8t.device}")
+    B, dev = a0.shape[0], soa8t.device
+    out = torch.empty((1 + len(codes), B, K), dtype=torch.float32, device=dev)
+    idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
+           else None)
+    n_in = torch.empty((B,), dtype=torch.int64, device=dev)
+    rc = _cuda.library().so_slab_gather_sorted(
+        *_launch_args(*args, codes), out.data_ptr(),
+        idx.data_ptr() if want_idx else None, n_in.data_ptr(),
+        sorted_threads(K), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "so_slab_gather_sorted")
+    launches += 1
+    sorted_launches += 1
+    return out[0], list(out[1:].unbind(0)), idx, n_in

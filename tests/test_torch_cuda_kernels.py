@@ -1,5 +1,5 @@
-"""Kernels K1 (csrc/slab_gather.cu), K2 (csrc/seqsum.cu) and K3
-(csrc/piece_gather.cu) on the card.
+"""Kernels K1 (csrc/slab_gather.cu, its slotted and its sorted form), K2
+(csrc/seqsum.cu) and K3 (csrc/piece_gather.cu) on the card.
 
 Every test needs a CUDA device and skips without one. Each kernel is
 held against its plain torch version on the same CUDA tensors, and
@@ -150,12 +150,155 @@ def test_k3_matches_plain_and_k1(dev, n, chans, want_idx):
 
 def test_k1_rejects_bad_payload(dev):
     soa = torch.zeros((8, 300), device=dev)[:, ::2]     # not contiguous
-    z = torch.zeros((1, 2), dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):
-        slab_gather.slab_gather_rows(
-            soa, z, z, z, torch.zeros(1, dtype=torch.int64, device=dev),
+    z = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    tail = (torch.zeros(1, dtype=torch.int32, device=dev),
             torch.zeros((1, 3), device=dev), torch.ones(3, device=dev),
             torch.ones(1, device=dev), 128, 128)
+    for fn in (slab_gather.slab_gather_rows,
+               slab_gather.slab_gather_sorted_rows):
+        with pytest.raises(ValueError):
+            fn(soa, z, z, z, *tail)
+        with pytest.raises(ValueError):                 # int64 descriptors
+            fn(soa.contiguous(), z.long(), z.long(), z.long(), *tail)
+
+
+def _assert_sorted_equal(got, want, tag):
+    """(d2, channels, idx, n_in) of the sorted form, bit for bit."""
+    assert len(got[1]) == len(want[1]), tag
+    pairs = [(got[0], want[0]), (got[3], want[3])] + list(zip(got[1], want[1]))
+    if want[2] is None:
+        assert got[2] is None, tag
+    else:
+        pairs.append((got[2], want[2]))
+    for a, b in pairs:
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, tag
+        assert a.is_contiguous(), tag
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), tag
+
+
+def _sorted_check(args, tag):
+    """The sorted kernel against its plain version on the card and on the
+    CPU; one launch, counted under both counters."""
+    n0, s0 = slab_gather.launches, slab_gather.sorted_launches
+    got = slab_gather.slab_gather_sorted_rows(*args)
+    torch.cuda.synchronize()
+    assert (slab_gather.launches, slab_gather.sorted_launches) \
+        == (n0 + 1, s0 + 1)
+    _assert_sorted_equal(got, slab_gather.slab_gather_sorted_plain(*args),
+                         tag + " (card plain)")
+    cpu = [x.cpu() if torch.is_tensor(x) else x for x in args]
+    _assert_sorted_equal(got, slab_gather.slab_gather_sorted_plain(*cpu),
+                         tag + " (CPU plain)")
+    assert (slab_gather.launches, slab_gather.sorted_launches) \
+        == (n0 + 1, s0 + 1)
+    return got
+
+
+@pytest.mark.parametrize("chans,want_idx", [((), False), ((), True),
+                                            (("mass",), False),
+                                            (("mass", "meta"), True),
+                                            (FULL, True)])
+@pytest.mark.parametrize("n", [20000, 40000])   # chunk 128, then 256
+def test_k1_sorted_matches_plain(dev, n, chans, want_idx):
+    """The sorted form at K from 512 to SORTED_K_MAX and at odd K, with
+    duplicate particles (equal d2 must come out in slot order), an empty
+    ball, and balls whose chunks overflow K."""
+    from so_tpu_torch.ops.gather import SORTED_K_MAX
+
+    rng, pos, mass, vel, ptype, mark = _box(3, n)
+    pos[n // 2: n // 2 + 40] = pos[0]          # 41 particles at one point
+    grid = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=4,
+                      device=dev)
+    B, S, level = 64, 5, 1
+    centers = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3))
+                              .astype(np.float32), device=dev)
+    centers[:8] = torch.as_tensor(pos[0], device=dev)   # on the duplicates
+    radii = torch.as_tensor(rng.uniform(0.03, 0.12, B).astype(np.float32),
+                            device=dev)
+    radii[:4] = 0.01            # small enough to keep the duplicates
+    radii[9] = 1e-6                                     # an empty ball
+    for K in (512, 1023, 2050, 4096, SORTED_K_MAX):
+        desc, total = _descriptors(grid, centers, radii, K, S, level)
+        args = (grid.soa8t, *desc, centers, grid.period, radii * radii, K,
+                grid.chunk, chans, want_idx)
+        d2, _, _, n_in = _sorted_check(args, f"K={K}")
+        n_in = n_in.cpu().numpy()
+        assert n_in[9] == 0 and n_in.max() > 100
+        assert (total > K).any() or K > 4096
+        if int(total[0]) <= K:                          # the ties, if kept
+            row = d2[0, :n_in[0]].cpu().numpy()
+            assert (np.diff(row) == 0).sum() >= 40
+        else:
+            assert K < 2050
+
+
+@pytest.mark.parametrize("K", [512, 777, 4096, 1 << 14])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_k1_sorted_full_rows(dev, K, chunk):
+    """Descriptors made by hand so that every slot is a hit (n_in = K,
+    shared memory full) or none is, over a payload of few distinct
+    positions (long runs of equal d2)."""
+    rng = np.random.default_rng(K + chunk)
+    npay = 3 * K + chunk
+    soa = torch.as_tensor(rng.uniform(-0.5, 0.5, (8, npay))
+                          .astype(np.float32), device=dev)
+    soa[:3] = torch.round(soa[:3] * 4) / 4              # 5^3 positions
+    B, NC = 6, (K + chunk) // chunk
+    a0 = torch.as_tensor(rng.integers(0, 2 * K // chunk, (B, 1)) * chunk,
+                         dtype=torch.int32, device=dev).expand(B, NC) \
+        .contiguous()
+    lo = torch.zeros((B, NC), dtype=torch.int32, device=dev)
+    hi = torch.full((B, NC), npay, dtype=torch.int32, device=dev)
+    n_total = torch.full((B,), NC, dtype=torch.int32, device=dev)
+    n_total[4] = 0                                      # no live chunk
+    centers = torch.zeros((B, 3), device=dev)
+    r2 = torch.full((B,), 10.0, device=dev)
+    r2[5] = -1.0                                        # live, no hit
+    for chans, want_idx in (((), False), (FULL, True)):
+        args = (soa, a0, lo, hi, n_total, centers,
+                torch.ones(3, device=dev), r2, K, chunk, chans, want_idx)
+        got = _sorted_check(args, f"full K={K} chunk={chunk}")
+        assert got[3].tolist() == [K, K, K, K, 0, 0]
+
+
+@pytest.mark.parametrize("B", [1, 16384])
+def test_k1_sorted_batch_sizes(dev, B):
+    rng, pos, mass, vel, ptype, mark = _box(4, 40000)
+    grid = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=4,
+                      device=dev)
+    centers = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 3))
+                              .astype(np.float32), device=dev)
+    radii = torch.as_tensor(rng.uniform(0.01, 0.05, B).astype(np.float32),
+                            device=dev)
+    desc, _ = _descriptors(grid, centers, radii, 512, 5, 2)
+    args = (grid.soa8t, *desc, centers, grid.period, radii * radii, 512,
+            grid.chunk, ("mass",), True)
+    got = _sorted_check(args, f"B={B}")
+    assert got[3].sum() > 0
+
+
+def test_k1_sorted_refuses_rows_past_shared_memory(dev):
+    """A row whose keys do not fit one block's shared memory is refused by
+    the launch itself; nothing gives way to the plain version."""
+    from so_tpu_torch.ops.gather import SORTED_K_MAX
+
+    rng, pos, mass, vel, ptype, mark = _box(5, 20000)
+    grid = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=4,
+                      device=dev)
+    centers = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, 3))
+                              .astype(np.float32), device=dev)
+    radii = torch.full((2,), 0.05, device=dev)
+    K = SORTED_K_MAX + grid.chunk
+    desc, _ = _descriptors(grid, centers, radii, K, 5, 2)
+    n0 = slab_gather.launches
+    with pytest.raises(RuntimeError):
+        slab_gather.slab_gather_sorted_rows(
+            grid.soa8t, *desc, centers, grid.period, radii * radii, K,
+            grid.chunk)
+    assert slab_gather.launches == n0
 
 
 # both sides of rows_per_block's switch, K % 4 != 0, odd K, B not a
@@ -279,10 +422,32 @@ def test_pipeline_cuda_matches_cpu(dev):
 
     sp = (DARK, GAS, STAR)
     k0, s0 = slab_gather.launches, seqsum.launches
+    f0 = slab_gather.sorted_launches
     g = run_so(ps, cat(), SOParams(species=sp, device="cuda"))
     assert slab_gather.launches > k0 and seqsum.launches > s0
+    assert slab_gather.sorted_launches > f0
     c = run_so(ps, cat(), SOParams(species=sp, device="cpu"))
     assert (g.solve.code == 0).all()
+    # the same run with the sorted form off (the slotted kernel, then
+    # torch.sort and the gathers) gives identical fields
+    from so_tpu_torch.ops import gather
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gather, "SORTED_K_MAX", 0)
+        f0 = slab_gather.sorted_launches
+        u = run_so(ps, cat(), SOParams(species=sp, device="cuda"))
+        assert slab_gather.sorted_launches == f0
+    for a, b in ((g.solve.code, u.solve.code), (g.solve.mvir, u.solve.mvir),
+                 (g.solve.rvir, u.solve.rvir), (g.solve.j, u.solve.j),
+                 (g.solve.d2cut, u.solve.d2cut), (g.solve.vcm, u.solve.vcm),
+                 (g.conflicts.igrp, u.conflicts.igrp),
+                 (g.derived.vcirc, u.derived.vcirc),
+                 (g.derived.rmass, u.derived.rmass),
+                 (g.derived.rmax, u.derived.rmax),
+                 (g.derived.vmax, u.derived.vmax)):
+        assert a.tobytes() == b.tobytes()
+    for ma, mb in zip(g.members, u.members):
+        assert (ma is None) == (mb is None)
+        assert ma is None or np.array_equal(ma, mb)
     for a, b in ((g.solve.mvir, c.solve.mvir), (g.solve.d2cut, c.solve.d2cut),
                  (g.solve.j, c.solve.j), (g.solve.vcm, c.solve.vcm),
                  (g.conflicts.igrp, c.conflicts.igrp),
