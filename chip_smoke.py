@@ -32,7 +32,10 @@ script exits nonzero:
      gather) against its plain version and against K1 on the giant box
      (below), B = 8 and 64 halos about the clump, K = 2^18 and 2^21, d2
      only / mass / mass + meta + idx, with K1's time beside K3's and the
-     device ms of both. Equality is exact (tolerance 0).
+     device ms of both (k3_study.py holds the measurements that chose K3's
+     design). Equality is exact (tolerance 0). K1's and K3's bytes bounds
+     count each payload row once however many of the batch's balls hold
+     it (gather_reads).
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
@@ -317,24 +320,26 @@ def phase_build():
     log(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
 
 
-def gather_bound(cand, hits, live, per_desc, B, K, chans, want_idx,
-                 n_in=None):
-    """bound() of one K1/K3 call on this run's data: the 3 position rows
-    read once per candidate (a row inside its run; ``cand`` of them), the
-    rows the channels need read once per in-ball hit only (``hits``), the
-    ``per_desc`` int32 fields of each live descriptor (``live``, the
-    per-halo counts, themselves read) read once, every output slot written
-    once; ~23 f32 operations per candidate (three min-image axes, the sum,
-    the test). With ``n_in`` (the sorted form): the counts written too, and
-    the compare-exchanges of each halo's bitonic network at its padded
-    size n, n/2 x log2 n x (log2 n + 1)/2, as operations."""
+def gather_bound(reads, live, per_desc, B, K, chans, want_idx, n_in=None):
+    """bound() of one K1/K3 call on this run's data. ``reads`` is
+    gather_reads()': the 3 position rows of each distinct payload row a
+    halo's runs put below K, read once however many halos' balls hold it;
+    the rows the channels need of each distinct in-ball row, read once;
+    ~23 f32 operations per (halo, candidate) pair (three min-image axes,
+    the sum, the test: each halo does its own). Also the ``per_desc``
+    int32 fields of each live descriptor (``live``, the per-halo counts,
+    themselves read) read once, and every output slot written once. With
+    ``n_in`` (the sorted form): the counts written too, and the
+    compare-exchanges of each halo's bitonic network at its padded size n,
+    n/2 x log2 n x (log2 n + 1)/2, as operations."""
     import torch
 
     from so_tpu_torch.ops.slab_gather import CHANNEL_ROWS
 
+    cand, rows_read, hit_rows = reads
     rows = len({CHANNEL_ROWS[c] for c in chans}
                | ({3} if {"mvx", "mvy", "mvz"} & set(chans) else set()))
-    nbytes = (4 * 3 * cand + 4 * rows * hits
+    nbytes = (4 * 3 * rows_read + 4 * rows * hit_rows
               + 4 * (per_desc * int(live.sum()) + live.numel())
               + 4 * B * K * (1 + len(chans) + int(want_idx)))
     ops = 23 * cand
@@ -345,9 +350,24 @@ def gather_bound(cand, hits, live, per_desc, B, K, chans, want_idx,
     return bound(nbytes, ops)
 
 
-def candidates(cnt, K):
-    """Rows inside their runs that a gather of K slots a halo can reach."""
-    return int(cnt.sum(dim=1).clamp(max=K).sum())
+def gather_reads(n_cols, chunk, st, cnt, q, K, idx):
+    """(candidates, distinct rows, distinct in-ball rows) of one gather:
+    (halo, row) pairs inside their runs at slots below K; the payload rows
+    among them, each counted once (the union of the runs' reachable rows:
+    row st + i of a run sits at slot q + st % chunk + i); and the distinct
+    rows of ``idx``, the gather's source rows (-1 off-ball)."""
+    import torch
+
+    reach = torch.clamp(torch.minimum(cnt, K - q - st % chunk), min=0)
+    live = reach > 0
+    edge = torch.zeros(n_cols + 1, dtype=torch.int64, device=st.device)
+    one = torch.ones_like(st[live])
+    edge.scatter_add_(0, st[live], one)
+    edge.scatter_add_(0, (st + reach)[live], -one)
+    seen = torch.zeros(n_cols + 1, dtype=torch.bool, device=st.device)
+    seen[idx.long().flatten() + 1] = True          # -1 lands on entry 0
+    return (int(reach.sum()), int((torch.cumsum(edge, 0)[:-1] > 0).sum()),
+            int(seen[1:].sum()))
 
 
 def make_standard_box():
@@ -385,6 +405,10 @@ def k1_case(g, level, S, c, r, K, chans, want_idx, slotted, tag):
     rec = dict(shape=f"B={B} K={K} {tag}", library_ms=None)
     line = f"[K1] B={B} K={K} level={level} S={S} {tag}:"
     err = 0.0
+    reads = gather_reads(g.soa8t.shape[1], chunk, st, cnt, q, K,
+                         slab_gather.slab_gather_rows(
+                             g.soa8t, *desc, c, g.period, r * r, K, chunk,
+                             (), True)[2])
     if slotted:
         got = slab_gather.slab_gather_rows(*args)
         want = slab_gather.slab_gather_plain(*args)
@@ -393,10 +417,8 @@ def k1_case(g, level, S, c, r, K, chans, want_idx, slotted, tag):
             if a is not None:
                 assert_same_bits(f"K1 {name}", a, b)
                 err = max(err, max_abs_err(a, b))
-        hits = int(torch.isfinite(got[0]).sum())
         del got, want
-        bms, by = gather_bound(candidates(cnt, K), hits, desc[3], 3, B, K,
-                               chans, want_idx)
+        bms, by = gather_bound(reads, desc[3], 3, B, K, chans, want_idx)
         rec.update(
             ms=cuda_ms(lambda: slab_gather.slab_gather_rows(*args), reps),
             device_ms=graph_ms(lambda: slab_gather.slab_gather_rows(*args),
@@ -427,8 +449,8 @@ def k1_case(g, level, S, c, r, K, chans, want_idx, slotted, tag):
     def unfused():
         return slab_gather.sort_rows(*slab_gather.slab_gather_rows(*args))
 
-    sbms, sby = gather_bound(candidates(cnt, K), int(n_in.sum()), desc[3], 3,
-                             B, K, chans, want_idx, n_in)
+    sbms, sby = gather_bound(reads, desc[3], 3, B, K, chans, want_idx,
+                             n_in)
     rec.update(
         max_abs_err=err,
         sorted_ms=cuda_ms(
@@ -443,7 +465,7 @@ def k1_case(g, level, S, c, r, K, chans, want_idx, slotted, tag):
         f"(events) {rec['sorted_device_ms']:.4f} ms (graph) bound "
         f"{sbms:.4f} ms ({sby}); unfused route {rec['unfused_ms']:.4f} ms "
         f"(events) {rec['unfused_device_ms']:.4f} ms (graph); in-ball "
-        f"{int(n_in.sum())} of {candidates(cnt, K)} "
+        f"{int(n_in.sum())} of {reads[0]} "
         f"candidates, largest n_in {int(n_in.max())}, "
         f"{int((total > K).sum())} rows past K")
     if slotted and ties == 0 and B == 4096:
@@ -575,79 +597,99 @@ def phase_k2():
     return k2
 
 
-def phase_k3(giant):
-    """K3 against its plain version (tolerance 0) and against K1 (bit for
-    bit) on the giant box, at giant-tier shapes: B = 8 and 64 halos about
-    the clump, K = 2^18 and 2^21, d2 only, mass, mass + meta + idx."""
+K3_CHANNELS = (((), False), (("mass",), False), (("mass", "meta"), True))
+
+
+def k3_shapes(grid, giant):
+    """phase_k3's shapes on the giant box's grid, in order: per (K, B) the
+    centers, radii, level, span and cell_ranges' (st, cnt, q, total). K=2^18
+    at radii 0.002-0.013 about the clump's center overflows (340,000-563,000
+    candidate slots: a first-rung dispatch); K=2^21 at 0.08-0.2 holds
+    1.63-1.93 million (the clump and some background)."""
     import numpy as np
     import torch
 
     from so_tpu_torch.engine.solver import _pick_level_span
-    from so_tpu_torch.ops import piece_gather, slab_gather
     from so_tpu_torch.ops.gather import cell_ranges
-    from so_tpu_torch.ops.grid import build_grid
 
-    dev = torch.device("cuda")
-    grid = build_grid(giant["pos"], giant["masses"][0][1], device=dev)
     rng = np.random.default_rng(GIANT_SEED + 1)
-    rows = {}
-    # K=2^18 at radii 0.002-0.013 about the clump's center overflows
-    # (340,000-563,000 candidate slots: a first-rung dispatch); K=2^21 at
-    # 0.08-0.2 holds 1.63-1.93 million (the clump and some background)
     for K, (r_lo, r_hi) in ((1 << 18, (0.002, 0.013)),
                             (1 << 21, (0.08, 0.2))):
         for B in (8, 64):
             c = torch.as_tensor((giant["centers"][0] + rng.normal(
-                scale=0.003, size=(B, 3))).astype(np.float32), device=dev)
+                scale=0.003, size=(B, 3))).astype(np.float32),
+                device=grid.device)
             r_np = rng.uniform(r_lo, r_hi, B).astype(np.float32)
-            r = torch.as_tensor(r_np, device=dev)
+            r = torch.as_tensor(r_np, device=grid.device)
             level, S = _pick_level_span(grid, float(r_np.max()))
-            st, cnt, q, total = cell_ranges(grid, level, c, r, r * r, S,
-                                            align=grid.chunk)
-            pdesc = piece_gather.piece_descriptors(st, cnt, q, K, grid.chunk)
-            cdesc = slab_gather.chunk_descriptors(st, cnt, q, K, grid.chunk)
-            for chans, want_idx in (((), False), (("mass",), False),
-                                    (("mass", "meta"), True)):
-                tail = (c, grid.period, r * r, K, grid.chunk, chans, want_idx)
-                a3 = (grid.soa8t, *pdesc, *tail)
-                a1 = (grid.soa8t, *cdesc, *tail)
-                got = piece_gather.piece_gather_rows(*a3)
-                plain = piece_gather.piece_gather_plain(*a3)
-                k1 = slab_gather.slab_gather_rows(*a1)
-                torch.cuda.synchronize()
-                err = 0.0
-                for name, a, p, b in zip(("d2", "channels", "idx"), got,
-                                         plain, k1):
-                    if a is None:
-                        continue
-                    assert_same_bits(f"K3 {name}", a, p)
-                    assert_same_bits(f"K3 {name} against K1", a, b)
-                    err = max(err, max_abs_err(a, p))
-                hits = int(torch.isfinite(got[0]).sum())
-                del got, plain, k1
-                ms = cuda_ms(lambda: piece_gather.piece_gather_rows(*a3), 5)
-                k1_ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*a1), 5)
-                dev_ms = graph_ms(
-                    lambda: piece_gather.piece_gather_rows(*a3), 5)
-                k1_dev_ms = graph_ms(
-                    lambda: slab_gather.slab_gather_rows(*a1), 5)
-                plain_ms = cuda_ms(
-                    lambda: piece_gather.piece_gather_plain(*a3), 1)
-                bms, by = gather_bound(candidates(cnt, K), hits, pdesc[5], 5,
-                                       B, K, chans, want_idx)
-                tag = f"B={B} K={K} nch={len(chans)} idx={int(want_idx)}"
-                log(f"[K3] {tag} level={level} S={S}: equal to its plain "
-                    f"version and to K1, max_abs_err {err}; K3 {ms:.4f} ms "
-                    f"(events) {dev_ms:.4f} ms (graph), K1 {k1_ms:.4f} ms "
-                    f"(events) {k1_dev_ms:.4f} ms (graph), plain "
-                    f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
-                    f"{int((total > K).sum())} of {B} rows past K")
-                rows[(B, K, len(chans))] = dict(
-                    max_abs_err=err, ms=ms, device_ms=dev_ms,
-                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None, k1_ms=k1_ms, k1_device_ms=k1_dev_ms,
-                    shape=tag)
-                torch.cuda.empty_cache()
+            yield B, K, c, r, level, S, cell_ranges(grid, level, c, r, r * r,
+                                                    S, align=grid.chunk)
+
+
+def phase_k3(giant):
+    """K3 against its plain version (tolerance 0) and against K1 (bit for
+    bit) on the giant box, at giant-tier shapes (k3_shapes): B = 8 and 64
+    halos about the clump, K = 2^18 and 2^21, d2 only, mass, mass + meta +
+    idx. The payload's row stride is padded to 32 floats, as K3 reads it."""
+    import torch
+
+    from so_tpu_torch.ops import piece_gather, slab_gather
+    from so_tpu_torch.ops.grid import build_grid
+
+    dev = torch.device("cuda")
+    grid = build_grid(giant["pos"], giant["masses"][0][1], device=dev)
+    if grid.soa8t.shape[1] % 32:
+        raise AssertionError("the payload's row stride is not padded")
+    rows = {}
+    for B, K, c, r, level, S, (st, cnt, q, total) in k3_shapes(grid, giant):
+        pdesc = piece_gather.piece_descriptors(st, cnt, q, K, grid.chunk)
+        cdesc = slab_gather.chunk_descriptors(st, cnt, q, K, grid.chunk)
+        reads = gather_reads(grid.soa8t.shape[1], grid.chunk, st, cnt, q, K,
+                             piece_gather.piece_gather_rows(
+                                 grid.soa8t, *pdesc, c, grid.period, r * r,
+                                 K, grid.chunk, (), True)[2])
+        for chans, want_idx in K3_CHANNELS:
+            tail = (c, grid.period, r * r, K, grid.chunk, chans, want_idx)
+            a3 = (grid.soa8t, *pdesc, *tail)
+            a1 = (grid.soa8t, *cdesc, *tail)
+            got = piece_gather.piece_gather_rows(*a3)
+            plain = piece_gather.piece_gather_plain(*a3)
+            k1 = slab_gather.slab_gather_rows(*a1)
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, a, p, b in zip(("d2", "channels", "idx"), got, plain,
+                                     k1):
+                if a is None:
+                    continue
+                assert_same_bits(f"K3 {name}", a, p)
+                assert_same_bits(f"K3 {name} against K1", a, b)
+                err = max(err, max_abs_err(a, p))
+            del got, plain, k1
+            ms = cuda_ms(lambda: piece_gather.piece_gather_rows(*a3), 5)
+            k1_ms = cuda_ms(lambda: slab_gather.slab_gather_rows(*a1), 5)
+            dev_ms = graph_ms(lambda: piece_gather.piece_gather_rows(*a3), 5)
+            k1_dev_ms = graph_ms(lambda: slab_gather.slab_gather_rows(*a1),
+                                 5)
+            plain_ms = cuda_ms(lambda: piece_gather.piece_gather_plain(*a3),
+                               1)
+            bms, by = gather_bound(reads, pdesc[5], 5, B, K, chans,
+                                   want_idx)
+            tag = f"B={B} K={K} nch={len(chans)} idx={int(want_idx)}"
+            log(f"[K3] {tag} level={level} S={S}: equal to its plain "
+                f"version and to K1, max_abs_err {err}; K3 {ms:.4f} ms "
+                f"(events) {dev_ms:.4f} ms (graph), K1 {k1_ms:.4f} ms "
+                f"(events) {k1_dev_ms:.4f} ms (graph), plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}) = "
+                f"{bms / dev_ms:.3f} of K3's device time; reads "
+                f"{reads[0]} candidates, {reads[1]} distinct rows, "
+                f"{reads[2]} distinct in-ball; {int((total > K).sum())} of "
+                f"{B} rows past K")
+            rows[(B, K, len(chans))] = dict(
+                max_abs_err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, k1_ms=k1_ms, k1_device_ms=k1_dev_ms,
+                shape=tag)
+            torch.cuda.empty_cache()
     del grid
     torch.cuda.empty_cache()
     return rows[(8, 1 << 21, 1)]    # a general-mass giant solve dispatch

@@ -253,8 +253,11 @@ def sorted_against_unfused(grid, centers, rgtp):
                      for f in (unfused, fused, fused, unfused)]
             u = [(turns[0][i] + turns[3][i]) / 2 for i in (0, 1)]
             f = [(turns[1][i] + turns[2][i]) / 2 for i in (0, 1)]
-            bms, by = cs.gather_bound(cs.candidates(cnt, K), int(n_in.sum()),
-                                      desc[3], 3, B, K, chans, want_idx, n_in)
+            reads = cs.gather_reads(grid.soa8t.shape[1], grid.chunk, st, cnt,
+                                    q, K, slab_gather.slab_gather_rows(
+                                        *a[:10], (), True)[2])
+            bms, by = cs.gather_bound(reads, desc[3], 3, B, K, chans,
+                                      want_idx, n_in)
             threads = {}
             try:
                 for t in (64, 128, 256, 512, 1024):

@@ -5,11 +5,13 @@
 //
 // Exactness: rintf (half to even, as jnp.round), __fdiv_rn, and the
 // __fmul_rn/__fadd_rn/__fsub_rn intrinsics, so no FMA contraction can
-// occur (the library is also built with -fmad=false).
+// occur (the library is also built with -fmad=false). The pad stores that
+// both gathers write past a halo's live slots are here too.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace so_gather {
 
@@ -74,5 +76,48 @@ __device__ __forceinline__ float load_channel(const float* __restrict__ soa,
   const float v = soa[(long long)code * np_cols + row];
   return channel_value(code, is_mv(code) ? soa[3 * np_cols + row] : 0.f, v);
 }
+
+// 4-byte pad stores over slots [s0, s1) of one halo.
+__device__ __forceinline__ void fill_pad4(float* __restrict__ o,
+                                          long long fstride, int nchan,
+                                          int* __restrict__ oi, long long s0,
+                                          long long s1, int tid, int nt) {
+  for (long long s = s0 + tid; s < s1; s += nt) {
+    o[s] = INFINITY;
+    for (int c = 0; c < nchan; ++c) o[(c + 1) * fstride + s] = 0.f;
+    if (oi != nullptr) oi[s] = -1;
+  }
+}
+
+// Pad values over slots [s0, s1) of one halo: +inf in the d2 row at o, 0
+// in the nchan channel rows fstride apart after it, -1 in the idx row.
+// vec: every row base is 16-byte aligned (K % 4 == 0, aligned tensors);
+// then slots [head, tail) take 16-byte stores.
+__device__ __forceinline__ void fill_pad(float* __restrict__ o,
+                                         long long fstride, int nchan,
+                                         int* __restrict__ oi, long long s0,
+                                         long long s1, bool vec, int tid,
+                                         int nt) {
+  if (!vec) {
+    fill_pad4(o, fstride, nchan, oi, s0, s1, tid, nt);
+    return;
+  }
+  const long long head = min(s1, (s0 + 3) & ~3LL);
+  const long long tail = head + ((s1 - head) & ~3LL);
+  const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int4 neg4 = make_int4(-1, -1, -1, -1);
+  fill_pad4(o, fstride, nchan, oi, s0, head, tid, nt);
+  for (long long s = head + 4LL * tid; s < tail; s += 4LL * nt) {
+    *reinterpret_cast<float4*>(o + s) = inf4;
+    for (int c = 0; c < nchan; ++c)
+      *reinterpret_cast<float4*>(o + (c + 1) * fstride + s) = zero4;
+    if (oi != nullptr) *reinterpret_cast<int4*>(oi + s) = neg4;
+  }
+  fill_pad4(o, fstride, nchan, oi, tail, s1, tid, nt);
+}
+
+// host: may a pointer take 16-byte accesses
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace so_gather

@@ -71,8 +71,6 @@
 // 4096), so that short rows put many small blocks on an SM; blocks of up
 // to 256 threads are compiled under a register cap for the same reason.
 
-#include <stdint.h>
-
 #include "gather_body.cuh"
 
 using namespace so_gather;
@@ -87,46 +85,6 @@ constexpr int kSortedUnroll = 4;               // slots a thread, sorted walk
 constexpr int kSlottedMinBlocks = 6;
 constexpr int kSortedMinBlocks = 6;
 constexpr size_t kMaxDynamicShared = 232448 - 1024;
-
-// 4-byte pad stores over slots [s0, s1) of one halo.
-__device__ __forceinline__ void fill_pad4(float* __restrict__ o,
-                                          long long fstride, int nchan,
-                                          int* __restrict__ oi, long long s0,
-                                          long long s1, int tid, int nt) {
-  for (long long s = s0 + tid; s < s1; s += nt) {
-    o[s] = INFINITY;
-    for (int c = 0; c < nchan; ++c) o[(c + 1) * fstride + s] = 0.f;
-    if (oi != nullptr) oi[s] = -1;
-  }
-}
-
-// Pad values over slots [s0, s1) of one halo: +inf in the d2 row at o, 0
-// in the nchan channel rows fstride apart after it, -1 in the idx row.
-// vec: every row base is 16-byte aligned (K % 4 == 0, aligned tensors);
-// then slots [head, tail) take 16-byte stores.
-__device__ __forceinline__ void fill_pad(float* __restrict__ o,
-                                         long long fstride, int nchan,
-                                         int* __restrict__ oi, long long s0,
-                                         long long s1, bool vec, int tid,
-                                         int nt) {
-  if (!vec) {
-    fill_pad4(o, fstride, nchan, oi, s0, s1, tid, nt);
-    return;
-  }
-  const long long head = min(s1, (s0 + 3) & ~3LL);
-  const long long tail = head + ((s1 - head) & ~3LL);
-  const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int4 neg4 = make_int4(-1, -1, -1, -1);
-  fill_pad4(o, fstride, nchan, oi, s0, head, tid, nt);
-  for (long long s = head + 4LL * tid; s < tail; s += 4LL * nt) {
-    *reinterpret_cast<float4*>(o + s) = inf4;
-    for (int c = 0; c < nchan; ++c)
-      *reinterpret_cast<float4*>(o + (c + 1) * fstride + s) = zero4;
-    if (oi != nullptr) *reinterpret_cast<int4*>(oi + s) = neg4;
-  }
-  fill_pad4(o, fstride, nchan, oi, tail, s1, tid, nt);
-}
 
 // The candidate source row of slot `slot` (inside chunk t < nc) of a halo
 // whose descriptors start at a0/lo/hi, or -1 when it lies outside its run.
@@ -311,8 +269,6 @@ slab_gather_sorted_kernel(
   fill_pad(o, BK, nchan, oi, n, K, vec != 0, tid, nt);
   if (tid == 0) n_in[b] = n;
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // Slots a thread of the slotted form (1, 2 or 4): 4 where a halo's row
 // fills the block, fewer for short rows, whose one block a halo would

@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -43,9 +44,10 @@ _SIGNATURES = {
     "so_slab_gather_sorted": [_P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L,
                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # (soa, np_cols, src, t0, v, lo, hi, n_pieces, n_chunks, np_max,
-    #  centers, period, r2, B, K, chunk, nchan, c0..c4, out, out_idx, stream)
+    #  centers, period, r2, B, K, chunk, nchan, c0..c4, out, out_idx,
+    #  pieces a block, stream)
     "so_piece_gather": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                        _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # (x, y, n_valid, B, K, rows, stream)
     "so_seqsum_rows": [_P, _P, _P, _L, _L, _I, _P],
 }
@@ -129,3 +131,10 @@ def check(rc: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the kernels' launch shapes
+    follow it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -3,11 +3,15 @@
 Particles are sorted once by Morton code on a 2^m-per-axis grid over the
 periodic box; a level-g cell is then a contiguous range of the sorted rows
 and one CSR ``starts`` array per level maps cell -> row range. The grid
-always carries the transposed (8, N + chunk) slab payload that kernel K1
-reads (rows x, y, z, mass, vx, vy, vz, meta; meta = species | mark << 4),
+always carries the transposed (8, W) slab payload that the gather kernels
+read (rows x, y, z, mass, vx, vy, vz, meta; meta = species | mark << 4),
 and nothing else per particle: the payload is a bit-exact encoding of
-pos/mass/vel/ptype/mark, served back by the ``*_a()`` accessors. Particle
-potentials (-pot) are kept beside it, in sorted order, only when given.
+pos/mass/vel/ptype/mark, served back by the ``*_a()`` accessors. Its row
+stride W is N + chunk rounded up to PAYLOAD_ALIGN floats, so every row
+starts on a 128-byte line and K3 reads it in 16-byte groups; the columns
+past N hold pad values (x=y=z=1e30, the rest 0) that no candidate reaches.
+Particle potentials (-pot) are kept beside it, in sorted order, only when
+given.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 CHUNK = 256
 TARGET_OCCUPANCY = 24   # mean particles per finest cell (choose_m)
 M_MAX = 9               # finest level choose_m picks
+PAYLOAD_ALIGN = 32      # payload row stride: a multiple of 32 floats
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +56,7 @@ class CellGrid:
     m: int                    # finest level has 2^m cells per axis
     lo: torch.Tensor          # (3,) f32 box lower corner (center - period/2)
     period: torch.Tensor      # (3,) f32
-    soa8t: torch.Tensor       # (8, N + chunk) f32 payload
+    soa8t: torch.Tensor       # (8, payload_width(N + chunk)) f32 payload
     orig_idx: torch.Tensor    # (N,) i64 sorted row -> original file order
     starts: tuple             # per level g=0..m: (8^(m-g)+1,) i64
     chunk: int = CHUNK        # slab chunk: payload tail pad, K1 block width
@@ -123,15 +128,36 @@ def choose_chunk(n_particles: int, m: int) -> int:
     return 256
 
 
+def payload_width(cols: int) -> int:
+    """The payload's row stride for ``cols`` = N + chunk columns: rounded
+    up to PAYLOAD_ALIGN floats."""
+    return -(-cols // PAYLOAD_ALIGN) * PAYLOAD_ALIGN
+
+
+def reads_in_16_bytes(soa8t: torch.Tensor) -> bool:
+    """Whether every 4 columns of every payload row from a column that is a
+    multiple of 4 are one aligned 16-byte group, as K3 reads them: a row
+    stride that is a multiple of 4 floats (payload_width's is) and a
+    16-byte aligned base."""
+    return soa8t.stride(0) % 4 == 0 and soa8t.data_ptr() % 16 == 0
+
+
+def pad_payload(soa: torch.Tensor, width: int) -> torch.Tensor:
+    """``soa`` (8, w) f32 extended to (8, width) with pad columns: x=y=z=1e30,
+    the rest 0."""
+    pad = torch.zeros((8, width - soa.shape[1]), dtype=torch.float32,
+                      device=soa.device)
+    pad[0:3] = 1e30
+    return torch.cat([soa.to(torch.float32), pad], dim=1)
+
+
 def pack_soa8t(pos, mass, vel, ptype, mark, chunk: int) -> torch.Tensor:
-    """The padded, transposed (8, N + chunk) payload (rows 4-6 hold RAW
-    velocities; K1 forms m*v itself). Pad columns carry x=y=z=1e30."""
+    """The padded, transposed (8, payload_width(N + chunk)) payload (rows
+    4-6 hold RAW velocities; the kernels form m*v themselves)."""
     meta = (ptype.to(torch.int32) | (mark.to(torch.int32) << 4)).to(torch.float32)
     soa = torch.stack([pos[:, 0], pos[:, 1], pos[:, 2], mass,
                        vel[:, 0], vel[:, 1], vel[:, 2], meta], dim=0)
-    pad = torch.zeros((8, chunk), dtype=torch.float32, device=pos.device)
-    pad[0:3] = 1e30
-    return torch.cat([soa.to(torch.float32), pad], dim=1)
+    return pad_payload(soa, payload_width(pos.shape[0] + chunk))
 
 
 def _level_starts(code_s: torch.Tensor, m: int) -> tuple:
@@ -193,7 +219,8 @@ def grid_from_arrays(m: int, lo, period, soa8t, orig_idx, starts,
                      device) -> CellGrid:
     """A port grid from another build's state as host arrays (the fields of
     so_tpu's CellGrid: m, lo, period, soa8t, orig_idx, starts[g], chunk,
-    uniform_mass) — feeds both packages the identical index."""
+    uniform_mass) — feeds both packages the identical index. so_tpu's
+    (8, N + chunk) payload is padded to the port's stride."""
     device = torch.device(device)
 
     def f32(a):     # np.array copies: the caller's arrays may be read-only
@@ -202,7 +229,9 @@ def grid_from_arrays(m: int, lo, period, soa8t, orig_idx, starts,
     def i64(a):
         return torch.as_tensor(np.array(a, np.int64), device=device)
 
-    return CellGrid(int(m), f32(lo), f32(period), f32(soa8t).contiguous(),
+    soa = f32(soa8t)
+    return CellGrid(int(m), f32(lo), f32(period),
+                    pad_payload(soa, payload_width(soa.shape[1])),
                     i64(orig_idx), tuple(i64(s) for s in starts),
                     chunk=int(chunk),
                     uniform_mass=None if uniform_mass is None

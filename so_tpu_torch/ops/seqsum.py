@@ -16,7 +16,6 @@ each chain at the count and reads nothing past it.
 from __future__ import annotations
 
 from collections import Counter
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -51,12 +50,6 @@ def rows_per_block(B: int, K: int, n_sm: int) -> int:
         if -(-B // rows) >= BLOCKS_PER_SM * n_sm:
             return rows
     return 1
-
-
-@lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(
-        device_index).multi_processor_count
 
 
 def _masked(x: torch.Tensor, n_valid) -> torch.Tensor:
@@ -99,7 +92,7 @@ def _seq_cumsum_cuda(x: torch.Tensor, n_valid):
     B, K = x.shape
     if B and K:
         nv = None if n_valid is None else n_valid.to(torch.int64).contiguous()
-        rows = rows_per_block(B, K, _sm_count(x.get_device()))
+        rows = rows_per_block(B, K, _cuda.sm_count(x.device))
         rc = _cuda.library().so_seqsum_rows(
             x.data_ptr(), y.data_ptr(), None if nv is None else nv.data_ptr(),
             B, K, rows, _cuda.stream_ptr(x.device))

@@ -105,6 +105,63 @@ def test_k3_matches_plain_and_k1(dev, n, chans, want_idx):
     """K3 against its plain version (card and CPU) and against K1, bit for
     bit, at giant capacities: K cut mid-piece, and K small enough that
     the large balls' pieces run past NP."""
+    _k3_check(dev, n, chans, want_idx)
+
+
+@pytest.mark.parametrize("chans,want_idx", [(("mass",), False),
+                                            (FULL, True)])
+@pytest.mark.parametrize("n", [20001, 40003])   # chunk 128, then 256
+def test_k3_payload_stride_padded(dev, n, chans, want_idx):
+    """N + chunk odd: the payload's rows are padded to a multiple of 32
+    floats, and K3 still equals its plain version and K1."""
+    from so_tpu_torch.ops.grid import payload_width
+
+    grid = _k3_check(dev, n, chans, want_idx)
+    assert (n + grid.chunk) % 4 != 0
+    assert grid.soa8t.shape[1] == payload_width(n + grid.chunk)
+
+
+@pytest.mark.parametrize("pieces", [4, 8, 16, 32])
+def test_k3_every_pieces_a_block(dev, pieces, monkeypatch):
+    """Each pieces a block the wrapper picks from, forced: the same bits."""
+    from so_tpu_torch.ops import piece_gather
+
+    monkeypatch.setattr(piece_gather, "pieces_per_block",
+                        lambda B, NP, n_sm: pieces)
+    _k3_check(dev, 40003, FULL, True)
+
+
+def test_k3_rejects_unaligned_payload(dev):
+    """A row stride that is not a multiple of 4 floats, or a base off 16
+    bytes, is refused on the card, never read another way."""
+    from so_tpu_torch.ops import piece_gather
+
+    rng, pos, mass, vel, ptype, mark = _box(2, 20001)
+    grid = build_grid(pos, mass, m=4, device=dev)
+    B, S, level, K = 2, 4, 2, 3000
+    centers = torch.zeros((B, 3), device=dev)
+    radii = torch.full((B,), 0.3, device=dev)
+    st, cnt, q, _ = cell_ranges(grid, level, centers, radii, radii * radii,
+                                S, align=grid.chunk)
+    desc = piece_gather.piece_descriptors(st, cnt, q, K, grid.chunk)
+    tail = (centers, grid.period, radii * radii, K, grid.chunk)
+    W = grid.soa8t.shape[1]
+    narrow = grid.soa8t[:, :W - 1].contiguous()           # stride W - 1
+    off = torch.empty(8 * W + 1, device=dev)[1:].view(8, W)
+    off.copy_(grid.soa8t)                                  # base + 4 bytes
+    n0 = piece_gather.launches
+    for soa in (narrow, off):
+        with pytest.raises(ValueError):
+            piece_gather.piece_gather_rows(soa, *desc, *tail)
+    with pytest.raises(ValueError):                        # int64
+        piece_gather.piece_gather_rows(grid.soa8t,
+                                       *(d.long() for d in desc), *tail)
+    assert piece_gather.launches == n0
+
+
+def _k3_check(dev, n, chans, want_idx):
+    """K3 on the card against its plain version there and on the CPU and
+    against K1, at K = 3000, n + 77 and 3n; returns the grid."""
     from so_tpu_torch.ops import piece_gather
 
     rng, pos, mass, vel, ptype, mark = _box(2, n)
@@ -146,6 +203,7 @@ def test_k3_matches_plain_and_k1(dev, n, chans, want_idx):
                 if a.dtype == torch.float32:
                     a, b = a.view(torch.int32), b.view(torch.int32)
                 assert torch.equal(a, b)
+    return grid
 
 
 def test_k1_rejects_bad_payload(dev):

@@ -2,7 +2,9 @@
 
 The same particles, made from a seed with numpy, go through both builds;
 the Morton permutation, every level's CSR starts, the slab payload, the
-chunk and the uniform-mass value must agree exactly (payload bit for bit).
+chunk and the uniform-mass value must agree exactly (payload bit for bit
+over so_tpu's N + chunk columns; the port's row stride is that rounded up
+to 32 floats, its extra columns holding the pad values).
 """
 
 import os
@@ -18,7 +20,8 @@ sys.path.insert(0, HERE)
 from so_tpu.ops import build_grid as jax_build_grid  # noqa: E402
 from so_tpu.ops.grid import morton_encode as jax_morton  # noqa: E402
 from so_tpu_torch.ops.grid import (build_grid, choose_chunk,  # noqa: E402
-                                   grid_from_arrays, morton_encode)
+                                   grid_from_arrays, morton_encode,
+                                   payload_width, reads_in_16_bytes)
 
 
 def jax_grid_arrays(g):
@@ -39,8 +42,22 @@ def assert_grids_equal(port, ref: dict):
     assert len(port.starts) == len(ref["starts"])
     for got, want in zip(port.starts, ref["starts"]):
         np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(port.soa8t.numpy().view(np.int32),
-                                  ref["soa8t"].view(np.int32))
+    soa, want = port.soa8t.numpy(), ref["soa8t"]
+    w = want.shape[1]
+    assert w == port.n + port.chunk
+    assert soa.shape == (8, payload_width(w)) and soa.shape[1] % 32 == 0
+    assert soa.shape[1] - w < 32 and port.soa8t.is_contiguous()
+    assert reads_in_16_bytes(port.soa8t)
+    # a row stride off 4 floats, or a base off 16 bytes, is refused
+    assert not reads_in_16_bytes(port.soa8t[:, 1:].contiguous())
+    flat = torch.empty(port.soa8t.numel() + 1)[1:]
+    assert not reads_in_16_bytes(flat.view(port.soa8t.shape))
+    np.testing.assert_array_equal(soa[:, :w].view(np.int32),
+                                  want.view(np.int32))
+    # the extra columns hold the pad values: x=y=z=1e30, the rest 0
+    extra = soa[:, w:]
+    assert (extra[0:3] == np.float32(1e30)).all()
+    assert (extra[3:].view(np.int32) == 0).all()
 
 
 def _particles(seed, n, box, center, uniform):
@@ -80,7 +97,24 @@ def test_grid_matches_so_tpu(box, center, uniform):
     np.testing.assert_array_equal(port.mark_a().numpy(), mark[perm])
     # state carried across: so_tpu's grid loaded into the port is the same
     # grid as the port's own build
-    assert_grids_equal(grid_from_arrays(**ref, device="cpu"), ref)
+    carried = grid_from_arrays(**ref, device="cpu")
+    assert_grids_equal(carried, ref)
+    assert torch.equal(carried.soa8t, port.soa8t)
+
+
+@pytest.mark.parametrize("n", [4001, 4030, 4031])
+def test_payload_stride_matches_so_tpu(n):
+    """N + chunk not a multiple of 32: the port's payload is so_tpu's with
+    pad columns up to the stride, built or carried across."""
+    pos, mass, vel, ptype, mark = _particles(19, n, 1.0, 0.0, False)
+    kw = dict(vel=vel, ptype=ptype, mark=mark)
+    ref = jax_grid_arrays(jax_build_grid(pos, mass, pallas=True, **kw))
+    port = build_grid(pos, mass, device="cpu", **kw)
+    assert port.soa8t.shape[1] > n + port.chunk
+    assert_grids_equal(port, ref)
+    carried = grid_from_arrays(**ref, device="cpu")
+    assert_grids_equal(carried, ref)
+    assert torch.equal(carried.soa8t, port.soa8t)
 
 
 def test_morton_and_chunk_rules():
