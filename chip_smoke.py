@@ -80,8 +80,20 @@ script exits nonzero:
      slots): every field must be identical. Then the same configuration at
      200,000 / 120,000 / 12 with gather.PIECE_K_MIN lowered to 2^12, so
      K3 serves most dispatches, on "cuda" and "cpu": identical bits.
+ 12. --mesh: run_so_sharded (so_tpu_torch/parallel) on 1x4 and 2x2 meshes
+     of cuda:0 over the standard box, uniform and three-species masses,
+     each against the card's run_so on the same inputs (uniform: every
+     field and member list bit for bit, a list allowed to differ only in
+     its order within equal d2; three species: codes, j and member sets
+     exact, Mvir, Rvir and d2cut to rtol 2e-6), with cold and warm solve
+     and e2e seconds beside the single-device run's; run_so_multi_sharded
+     at Delta 200, 340, 667 on the 2x2 mesh against run_so_multi; the
+     reduced giant box (PIECE_K_MIN 2^12) on a 1x2 mesh against run_so;
+     and the CLI's --mesh 1x1 against the plain CLI on phase 6's files.
+     Each [mesh] line counts the halos whose bits or member order differ
+     and the equal-d2 pairs in their balls.
 
-Phases 4, 7-10 and each giant run zero every kernel's launch counter
+Phases 4, 7-10, each sharded run of 12 and each giant run zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them (9's card-against-CPU check runs after its count is read), and
 log K2's launches per (B, K). The line before
@@ -112,6 +124,8 @@ DELTAS = (200.0, 340.0, 667.0)
 MULTI_ROUNDS = 3   # timed multi-vs-singles rounds after the cold multi run
 SURVEY_ROUNDS = 3  # timed rounds of the three survey modes after a warm-up
 GIANT_SEED = 515151
+MESH_SHAPES = ((1, 4), (2, 2))   # --mesh phase: meshes of cuda:0
+MESH_WARM_RUNS = 2  # timed runs of each mesh after its cold run
 # launches summed over the paths; K1 counts both of its forms, K1s the
 # sorted form's share
 LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0}
@@ -842,8 +856,9 @@ def phase_main_path(box):
     return counts
 
 
-def assert_runs_equal(tag, g, c, sp):
-    """Every field of two SORuns bit for bit; returns the compared pairs."""
+def assert_runs_equal(tag, g, c, sp, members=True):
+    """Every field of two SORuns bit for bit (the member lists too, unless
+    ``members`` is False); returns the compared pairs."""
     import numpy as np
 
     pairs = [(f"solve.{f}", getattr(g.solve, f), getattr(c.solve, f))
@@ -861,8 +876,8 @@ def assert_runs_equal(tag, g, c, sp):
         if a.dtype != b.dtype or a.tobytes() != b.tobytes():
             raise AssertionError(f"{tag}: {name} differs")
     for h, (ma, mb) in enumerate(zip(g.members, c.members)):
-        if (ma is None) != (mb is None) or (
-                ma is not None and not np.array_equal(ma, mb)):
+        if members and ((ma is None) != (mb is None) or (
+                ma is not None and not np.array_equal(ma, mb))):
             raise AssertionError(f"{tag}: members of halo {h} differ")
     return pairs
 
@@ -1346,6 +1361,225 @@ def phase_giant_vs_cpu():
         gather.PIECE_K_MIN = kmin
 
 
+def cuda_mesh(shape):
+    from so_tpu_torch.parallel import make_mesh
+
+    h, p = shape
+    return make_mesh(h, p, devices=["cuda:0"] * (h * p))
+
+
+def run_sharded(ps, catalog, species, mesh, **kw):
+    from so_tpu_torch.engine.pipeline import SOParams
+    from so_tpu_torch.parallel import run_so_sharded
+
+    t0 = time.perf_counter()
+    out = run_so_sharded(ps, catalog(), SOParams(threshold=THR,
+                                                 species=species, **kw), mesh)
+    return out, time.perf_counter() - t0
+
+
+def timed_runs(fn, *a):
+    """One cold and MESH_WARM_RUNS warm runs of ``fn(*a)`` (an SORun and
+    its e2e seconds): the last run, the cold (solve, e2e) seconds and the
+    warm medians."""
+    times = []
+    for _ in range(1 + MESH_WARM_RUNS):
+        out, e2e = fn(*a)
+        times.append((out.phases["R_Delta solve"], e2e))
+    warm = [statistics.median(t[i] for t in times[1:]) for i in (0, 1)]
+    return out, times[0], warm
+
+
+def member_d2(ps, center, members):
+    """d2 of each member from ``center`` in the port's f32 form (one
+    rounding an op, as row_fields), in the unit periodic box of every box
+    here."""
+    import numpy as np
+
+    x = ps.pos[members]
+    d = (center - np.float32(1.0) * np.round((center - x) / np.float32(1.0))
+         ) - x
+    return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+
+
+def equal_d2_pairs(ps, centers, radii):
+    """Per ball, the pairs of neighbours at equal d2 among its particles
+    (the port's f32 form in the unit periodic box, on the card: each torch
+    op rounds once)."""
+    import torch
+
+    pos = torch.as_tensor(ps.pos, device="cuda")
+    out = []
+    for c, r in zip(centers, radii):
+        c = torch.as_tensor(c, device="cuda")
+        d = (c - torch.round(c - pos)) - pos
+        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        inside = torch.sort(d2[d2 <= float(r) * float(r)]).values
+        out.append(int((inside[1:] == inside[:-1]).sum()))
+    return out
+
+
+def mesh_agrees(tag, got, want, ps, sp, uniform):
+    """A sharded run against run_so on the same inputs. Uniform mass:
+    every field bit for bit, and every member list, where a list may
+    differ only in the order of members at equal d2 (docs/PARITY.md #3:
+    the merge orders a tie by shard). General mass: codes, j and member
+    sets exact, Mvir, Rvir and d2cut to rtol 2e-6 (the serial sum past a
+    tie may differ by an ulp). Returns (halos whose solve bits differ,
+    halos whose member order differs within a tie)."""
+    import numpy as np
+
+    a, b = got.solve, want.solve
+    if uniform:
+        assert_runs_equal(tag, got, want, sp, members=False)
+    for f in ("code", "j"):
+        if getattr(a, f).tobytes() != getattr(b, f).tobytes():
+            raise AssertionError(f"{tag}: solve.{f} differs from run_so")
+    for f in ("mvir", "rvir", "d2cut"):
+        if not np.allclose(getattr(a, f), getattr(b, f), rtol=2e-6, atol=0):
+            raise AssertionError(f"{tag}: solve.{f} beyond rtol 2e-6")
+    differ = np.nonzero(
+        (a.mvir.view(np.int32) != b.mvir.view(np.int32))
+        | (a.rvir.view(np.int32) != b.rvir.view(np.int32))
+        | (a.d2cut.view(np.int32) != b.d2cut.view(np.int32)))[0]
+    tie_order = []
+    centers = np.asarray(want.catalog.pos, np.float32)
+    for h, (ma, mb) in enumerate(zip(got.members, want.members)):
+        if (ma is None) != (mb is None):
+            raise AssertionError(f"{tag}: members of halo {h} differ")
+        if ma is None or np.array_equal(ma, mb):
+            continue
+        if not np.array_equal(np.sort(ma), np.sort(mb)):
+            raise AssertionError(f"{tag}: member set of halo {h} differs")
+        if uniform and not np.array_equal(member_d2(ps, centers[h], ma),
+                                          member_d2(ps, centers[h], mb)):
+            raise AssertionError(f"{tag}: members of halo {h} differ in "
+                                 "more than the order within a tie")
+        tie_order.append(h)
+    return differ, np.asarray(tie_order, np.int64)
+
+
+def log_mesh(tag, got, want, ps, sp, uniform):
+    """mesh_agrees, and the [mesh] line with the count of halos whose bits
+    or member order differ and of the equal-d2 pairs in their balls."""
+    import numpy as np
+
+    differ, tie_order = mesh_agrees(tag, got, want, ps, sp, uniform)
+    odd = np.union1d(differ, tie_order)
+    ok = want.solve.code == 0
+    radii = np.where(ok, np.float32(2) * want.solve.rvir,
+                     np.float32(1.2) * want.catalog.rgtp)[odd]
+    pairs = sum(equal_d2_pairs(ps, want.catalog.pos[odd], radii))
+    log(f"[mesh] {tag}: against run_so on the card: "
+        + ("every field bit-identical" if uniform else
+           "codes, j and member sets exact, Mvir/Rvir/d2cut within rtol "
+           "2e-6")
+        + f"; {differ.size} halos with other solve bits, {tie_order.size} "
+        f"with member order differing within a tie; {pairs} equal-d2 pairs "
+        f"in the 2 Rvir balls of those {odd.size} halos")
+
+
+def phase_mesh(box):
+    """--mesh: run_so_sharded on 1x4 and 2x2 meshes of cuda:0 over the
+    standard box, uniform and three-species masses, each against the
+    card's run_so; run_so_multi_sharded at DELTAS on the 2x2 mesh against
+    run_so_multi; the reduced giant box on a 1x2 mesh with PIECE_K_MIN at
+    2^12 (K3) against run_so; and the CLI's --mesh 1x1 against the plain
+    CLI on the 2^18 box. The sharded runs are counted (K1, K1s, K2; K3 on
+    the giant box); the single-device references are not."""
+    from so_tpu_torch.engine.pipeline import SOParams, run_so_multi
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.ops import gather
+    from so_tpu_torch.parallel import run_so_multi_sharded
+
+    sp3 = (DARK, GAS, STAR)
+    for tag, sp in (("uniform", ()), ("species", sp3)):
+        ps, catalog = particles_and_catalog(box, sp, SEED)
+        want, cold, warm = timed_runs(run, ps, catalog, sp, "cuda")
+        log(f"[mesh {tag} single device] cold solve {cold[0]:.4f} s e2e "
+            f"{cold[1]:.4f} s; median of {MESH_WARM_RUNS} warm: solve "
+            f"{warm[0]:.4f} s e2e {warm[1]:.4f} s")
+        for shape in MESH_SHAPES:
+            name = f"{shape[0]}x{shape[1]}"
+            got, cold_m, warm_m = counted(
+                f"--mesh {name} {tag}", timed_runs, run_sharded, ps,
+                catalog, sp, cuda_mesh(shape),
+                need=("K1", "K1s") + (("K2",) if sp else ()))
+            log(f"[mesh {name} {tag}] cold solve {cold_m[0]:.4f} s e2e "
+                f"{cold_m[1]:.4f} s; median of {MESH_WARM_RUNS} warm: "
+                f"solve {warm_m[0]:.4f} s e2e {warm_m[1]:.4f} s (single "
+                f"device: {warm[0]:.4f} s, {warm[1]:.4f} s)")
+            log_mesh(f"{name} {tag}", got, want, ps, sp, not sp)
+        del want, got
+
+    ps, catalog = particles_and_catalog(box, sp3, SEED)
+    params = SOParams(species=sp3)
+    shape = MESH_SHAPES[1]
+    t0 = time.perf_counter()
+    want = run_so_multi(ps, catalog(), SOParams(species=sp3, device="cuda"),
+                        DELTAS)
+    t1 = time.perf_counter()
+    got = counted(f"--mesh {shape[0]}x{shape[1]} --deltas",
+                  run_so_multi_sharded, ps, catalog(), params, DELTAS,
+                  cuda_mesh(shape))
+    t2 = time.perf_counter()
+    for d, g, w in zip(DELTAS, got, want):
+        log_mesh(f"{shape[0]}x{shape[1]} --deltas Delta={d:g}", g, w, ps,
+                 sp3, False)
+    log(f"[mesh {shape[0]}x{shape[1]} --deltas] T={len(DELTAS)} solve "
+        f"(multi) {got[0].phases['R_Delta solve (multi)']:.4f} s e2e "
+        f"{t2 - t1:.4f} s (single device: "
+        f"{want[0].phases['R_Delta solve (multi)']:.4f} s, "
+        f"{t1 - t0:.4f} s; cold)")
+    del want, got
+
+    small_giant = giant_config(200_000, 120_000, 12)
+    kmin = gather.PIECE_K_MIN
+    gather.PIECE_K_MIN = 1 << 12
+    try:
+        for tag, mass in small_giant["masses"]:
+            gps, gcat = giant_inputs(small_giant, mass)
+            want, tw = run(gps, gcat, (), "cuda")
+            got, tg = counted(f"--mesh 1x2 giant {tag}", run_sharded, gps,
+                              gcat, (), cuda_mesh((1, 2)),
+                              need=("K1", "K1s", "K3")
+                              + (("K2",) if tag == "general" else ()))
+            log_mesh(f"1x2 giant {tag}, PIECE_K_MIN=2^12", got, want, gps,
+                     (), tag == "uniform")
+            log(f"[mesh 1x2 giant {tag}] particles={gps.n} halos="
+                f"{gcat().n}; largest shard K="
+                f"{int(got.solve.kcap.max())}; e2e {tg:.3f} s (single "
+                f"device {tw:.3f} s; cold)")
+    finally:
+        gather.PIECE_K_MIN = kmin
+    phase_mesh_cli()
+
+
+def phase_mesh_cli():
+    """The CLI's --mesh 1x1 on phase_cli's 2^18 files: the outputs equal
+    the plain CLI's byte for byte but for the header's run time and the
+    names of the profile files it lists."""
+    from so_tpu_torch.cli import main as cli_main
+
+    out = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_cli")
+    base = ["-i", f"{out}/cat.gtp", "--tipsy", f"{out}/snap.bin", "-grp",
+            "-gtp", "-all", "-delta", "178", "--device", "cuda"]
+    t0 = time.perf_counter()
+    if cli_main(base + ["-o", f"{out}/plain"]) != 0 or \
+            cli_main(base + ["-o", f"{out}/mesh", "--mesh", "1x1"]) != 0:
+        raise RuntimeError("CLI --mesh 1x1 failed")
+    exts = ("sovcirc", "sogrp", "sogtp", "sodark", "sogas", "sostar")
+    for ext in exts:
+        body = [[ln for ln in open(f"{out}/{run}.{ext}", "rb")
+                 if not (ln.startswith(b"# Run on") or b"written to" in ln)]
+                for run in ("plain", "mesh")]
+        if body[0] != body[1] or not body[0]:
+            raise AssertionError(f"CLI --mesh 1x1: .{ext} differs")
+    log(f"[mesh cli] python -m so_tpu_torch --mesh 1x1: {len(exts)} output "
+        f"files equal the plain CLI's but for the run time and file names; "
+        f"{time.perf_counter() - t0:.2f} s for both")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "so_tpu_torch")):
         sys.stderr.write("chip_smoke.py: run it from the root of a checkout "
@@ -1387,6 +1621,7 @@ def main():
     timed("cli", phase_cli, small)
     timed("-pot", counted, "-pot", phase_pot, box, small)
     timed("--deltas", counted, "--deltas", phase_multi, box)
+    timed("--mesh", phase_mesh, box)
     del box
     dense = timed("dense box", make_dense_box)
     timed("--survey", counted, "--survey", phase_survey, dense)

@@ -1,15 +1,16 @@
-"""Command-line entry point (port of so_tpu/cli.py, the single-device set).
+"""Command-line entry point (port of so_tpu/cli.py).
 
 Takes the reference's flags with so_tpu's semantics and defaults:
 -i -o -z -O -L -s -rho -delta -m -p -c -cx -cy -cz -std -M -u -list -grp
 -gtp -subsumed -ignored -pot -stat -mark -dark -gas -star -all, plus
-so_tpu's --tipsy, --verbose, --deltas, --survey, --checkpoint and
---profile. ``--device {cuda,cpu}`` (default cuda) picks the device;
+so_tpu's --tipsy, --verbose, --deltas, --survey, --checkpoint, --profile
+and --mesh. ``--device {cuda,cpu}`` (default cuda) picks the device;
 without a usable CUDA card a cuda run fails instead of moving to the CPU.
+``--mesh HxP`` shards the run over H x P devices (parallel/mesh.py): the
+first H * P CUDA devices, or H * P times the CPU with --device cpu.
 
-so_tpu's multi-device options (--mesh, --distributed) are not ported
-yet: they exit with status 1 and a one-line message naming their
-ROADMAP.md item.
+so_tpu's --distributed is not ported yet: it exits with status 1 and a
+one-line message naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .io.tipsy import DARK, GAS, STAR, MARK, read_tipsy
 from .io.writers import (SPECIES_EXT, write_array_file, write_profile_file,
                          write_sogtp, write_sovcirc_header,
                          write_sovcirc_rows)
+from .parallel import make_mesh
 from .stats import format_stats
 from .units import unit_conversions
 from .version import BANNER
@@ -44,12 +46,12 @@ python -m so_tpu_torch -i <SKID .gtp file> [-o <outfilebase>]
       [-u <fMassUnit> <fMpcUnit>]  [-pot]
       [--tipsy <snapshot>] [--verbose] [--device {cuda,cpu}]
       [--deltas <d1,d2,...>] [--survey] [--checkpoint <state.npz>]
-      [--profile <logdir>]
+      [--profile <logdir>] [--mesh HxP]
 
 Spherical-overdensity halo characterization on PyTorch (CUDA kernels on
 an NVIDIA GPU, or the plain torch versions with --device cpu). Flags and
 outputs follow so_tpu; see `python -m so_tpu` for their descriptions.
-Not yet in this package: --mesh, --distributed.
+Not yet in this package: --distributed.
 """
 
 
@@ -91,7 +93,7 @@ def main(argv=None) -> int:
     verbose = False
     device = "cuda"
     b_pot = b_survey = False
-    deltas = checkpoint = profile_dir = None
+    deltas = checkpoint = profile_dir = mesh_shape = None
 
     def need(i):
         if i >= len(argv):
@@ -189,6 +191,17 @@ def main(argv=None) -> int:
             i += 1; deltas = [ffloat(x) for x in need(i).split(",")]; i += 1
         elif a == "--survey":
             b_survey = True; i += 1
+        elif a == "--mesh":
+            # halo x part device mesh (parallel/mesh.py run_so_sharded)
+            i += 1
+            try:
+                mesh_shape = tuple(int(x) for x in need(i).split("x"))
+            except ValueError:
+                mesh_shape = ()
+            if len(mesh_shape) != 2 or min(mesh_shape) < 1:
+                sys.stderr.write("--mesh expects HxP, e.g. --mesh 2x4\n")
+                raise SystemExit(1)
+            i += 1
         elif a in NOT_PORTED:
             refuse(a)
         else:
@@ -249,6 +262,11 @@ def main(argv=None) -> int:
                     if on)
     units = unit_conversions(f_mass_unit, f_mpc_unit, f_redshift)
 
+    if checkpoint is not None and mesh_shape is not None:
+        # the sharded run has no resume: refuse rather than run
+        # uncheckpointed
+        sys.stderr.write("--mesh with --checkpoint is not supported yet\n")
+        raise SystemExit(1)
     if checkpoint is not None and deltas is not None:
         # run_so_multi never reads params.checkpoint: refuse rather than
         # run uncheckpointed
@@ -263,6 +281,17 @@ def main(argv=None) -> int:
                       verbose=verbose, profile_dir=profile_dir,
                       checkpoint=checkpoint,
                       survey=True if b_survey else None, device=device)
+
+    mesh = None
+    if mesh_shape is not None:
+        n_dev = mesh_shape[0] * mesh_shape[1]
+        try:
+            mesh = make_mesh(*mesh_shape, devices=(
+                ["cpu"] * n_dev if device == "cpu" else None))
+        except RuntimeError as e:
+            sys.stderr.write(f"--mesh {mesh_shape[0]}x{mesh_shape[1]}: "
+                             f"{e}\n")
+            raise SystemExit(1)
 
     def write_outputs(base, run, threshold, threshold_user):
         with open(f"{base}.sovcirc", "w") as fp_out:
@@ -297,13 +326,14 @@ def main(argv=None) -> int:
     if deltas is not None:
         thresholds = [float(np.float32(d * np.float32(f_omega)))
                       for d in deltas]
-        runs = run_so_multi(particles, catalog, params, thresholds)
+        runs = run_so_multi(particles, catalog, params, thresholds,
+                            mesh=mesh)
         for d, thr, run in zip(deltas, thresholds, runs):
             dstr = ("%g" % d).replace("+", "")
             write_outputs(f"{out_base}.d{dstr}", run, thr, True)
         solve_seconds = runs[-1].solve_seconds if runs else 0.0
     else:
-        run = run_so(particles, catalog, params)
+        run = run_so(particles, catalog, params, mesh=mesh)
         write_outputs(out_base, run, f_threshold, b_threshold)
         solve_seconds = run.solve_seconds
 

@@ -23,10 +23,10 @@ import numpy as np
 import torch
 
 from ..io.tipsy import MARK
-from ..ops.gather import slab_gather
+from ..ops.gather import footprint, slab_gather
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
-from .solver import (FUSED_SLOT_BUDGET, _chunk_for, _foot_stage, _k_limit,
+from .solver import (FUSED_SLOT_BUDGET, _chunk_for, _k_limit,
                      _pick_level_span, _uniform_cum, first_true)
 
 NVCIRC = 8          # kd2.h:10
@@ -168,16 +168,16 @@ def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
                 todo: np.ndarray, stage) -> None:
     """Dispatch the halos ``todo`` at their 2*Rvir balls ``fball``, with
     capacities from the exact per-halo slab footprints (one
-    enumeration-only pass, _foot_stage); a halo whose dispatch level needs
+    enumeration-only pass, gather.footprint); a halo whose dispatch level needs
     more slots overflows and retries at 4x. ``stage(part, level, K, S)``
     gathers one dispatch, keeps the results of the rows that did not
     overflow, and returns the host overflow mask."""
     dev = grid.device
     kl = _k_limit(grid)
     g0, S0 = _pick_level_span(grid, float(fball[todo].max()))
-    foot = _foot_stage(grid, g0, S0,
-                       torch.as_tensor(centers[todo], device=dev),
-                       torch.as_tensor(fball[todo], device=dev)).cpu().numpy()
+    foot = footprint(grid, g0, torch.as_tensor(centers[todo], device=dev),
+                     torch.as_tensor(fball[todo], device=dev),
+                     S0).cpu().numpy()
     need_cap = np.zeros(centers.shape[0], np.int64)
     need_cap[todo] = 2 ** np.ceil(np.log2(np.maximum(foot, 256))).astype(
         np.int64)
@@ -191,7 +191,7 @@ def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
             sel = todo[need_cap[todo] == capacity]
             K = int(min(capacity, max(512, kl)))
             level, S = _pick_level_span(grid, float(fball[sel].max()))
-            chunk = _chunk_for(K, FUSED_SLOT_BUDGET)
+            chunk = _chunk_for(grid.parts * K, FUSED_SLOT_BUDGET)
             for lo in range(0, sel.size, chunk):
                 part = sel[lo:lo + chunk]
                 ovf = stage(part, level, K, S)

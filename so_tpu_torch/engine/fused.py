@@ -51,7 +51,7 @@ def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
                               uniform_m=um)
     # interior members: the first j sorted rows — a PREFIX of each row, so
     # a boolean-mask compaction keeps halo-major, ascending-distance order
-    slot = torch.arange(K, device=d2_s.device)[None, :]
+    slot = torch.arange(d2_s.shape[1], device=d2_s.device)[None, :]
     interior = (slot < j[:, None]) & torch.isfinite(d2_s) & (srow >= 0)
     counts = interior.sum(dim=1)
     members = grid.orig_idx[srow[interior].long()]

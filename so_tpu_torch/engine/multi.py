@@ -186,7 +186,8 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             # unify the capacity tier across a tail that fits one dispatch;
             # otherwise only within a x16 band of the largest cap
             capu = cur_cap[live].max()
-            if live.size <= _chunk_for(int(min(capu, kl)), SOLVE_SLOT_BUDGET):
+            if live.size <= _chunk_for(grid.parts * int(min(capu, kl)),
+                                       SOLVE_SLOT_BUDGET):
                 cur_cap[live] = capu
             else:
                 cur_cap[live[cur_cap[live] * 16 > capu]] = capu
@@ -196,7 +197,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             k_eff = np.minimum(cur_k[sel], kmax[sel])
             radii = ladder_radius(rgtp[sel], k_eff)
             level, S = _pick_level_span(grid, float(radii.max()))
-            for lo, part in _dispatch_chunks(sel, K):
+            for lo, part in _dispatch_chunks(sel, grid.parts * K):
                 out = _multi_stage(
                     grid, level, K, S, n_members,
                     torch.as_tensor(centers[part], device=dev),

@@ -12,7 +12,9 @@ Stage order preserves the reference's observable semantics:
 Steps 2-4 read only particle data, which is what makes the batched form
 exact; step 5 is sequential and runs in the port's native C pass.
 run_so_multi solves several thresholds against shared gathers and runs
-steps 4-6 once per threshold.
+steps 4-6 once per threshold. Given a mesh (parallel.make_mesh), both
+shard the grid over its devices (parallel.build_sharded_grid); every
+stage then gathers through the sharded grid, unchanged.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..io.catalogs import GroupCatalog
 from ..io.tipsy import ParticleSet
 from ..numerics import indexx
 from ..ops.grid import CellGrid, build_grid
+from ..parallel.mesh import build_sharded_grid
 from ..profiling import PhaseTimer, profile_trace
 from ..stats import RunStats, compute_stats
 from .conflicts import ConflictState, resolve_conflicts
@@ -40,8 +43,7 @@ from .solver import SolveResult, solve_rvir
 
 # options of so_tpu that this package does not run yet -> ROADMAP.md item
 NOT_PORTED = {
-    "--mesh": 16,
-    "--distributed": 16,
+    "--distributed": 4,
 }
 
 
@@ -104,15 +106,24 @@ class SORun:
         return self.conflicts.rvir
 
 
-def _grid_and_centers(particles, catalog, params, dev, timer, grid):
-    """Grid build (unless given) and the optionally recentred centers."""
+def _run_device(params, mesh) -> torch.device:
+    """The run's device: the mesh's first device, else params.device."""
+    return mesh.device if mesh is not None else resolve_device(params.device)
+
+
+def _grid_and_centers(particles, catalog, params, dev, timer, grid, mesh):
+    """Grid build (unless given; sharded over ``mesh`` if one is given) and
+    the optionally recentred centers."""
     if grid is None:
         with timer.phase("grid build"):
-            grid = build_grid(
-                particles.pos, particles.mass, vel=particles.vel,
-                phi=particles.phi if params.b_pot else None,
-                ptype=particles.ptype_all(), mark=particles.mark,
-                period=params.period, center=params.center, device=dev)
+            kw = dict(vel=particles.vel,
+                      phi=particles.phi if params.b_pot else None,
+                      ptype=particles.ptype_all(), mark=particles.mark,
+                      period=params.period, center=params.center)
+            grid = (build_grid(particles.pos, particles.mass, device=dev,
+                               **kw) if mesh is None else
+                    build_sharded_grid(particles.pos, particles.mass,
+                                       mesh=mesh, **kw))
     centers = np.asarray(catalog.pos, np.float32).copy()
     rgtp = np.asarray(catalog.rgtp, np.float32)
     if params.b_pot:
@@ -123,14 +134,16 @@ def _grid_and_centers(particles, catalog, params, dev, timer, grid):
 
 
 def run_so(particles: ParticleSet, catalog: GroupCatalog, params: SOParams,
-           grid: CellGrid | None = None) -> SORun:
+           grid: CellGrid | None = None, mesh=None) -> SORun:
     """The single-threshold pipeline. ``grid`` may be a prebuilt grid of
-    these particles on the run's device (with phi for -pot)."""
-    dev = resolve_device(params.device)
+    these particles on the run's device (with phi for -pot); ``mesh``
+    shards the grid over the mesh's devices instead, and the run uses them
+    (params.device is not read)."""
+    dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
     with profile_trace(params.profile_dir, dev):
         grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
-                                                dev, timer, grid)
+                                                dev, timer, grid, mesh)
         t0 = _time.perf_counter()
         ck = params.checkpoint
         ck_members = digest = None
@@ -167,16 +180,17 @@ def run_so(particles: ParticleSet, catalog: GroupCatalog, params: SOParams,
 
 def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
                  params: SOParams, thresholds,
-                 grid: CellGrid | None = None) -> list[SORun]:
+                 grid: CellGrid | None = None, mesh=None) -> list[SORun]:
     """Multi-threshold pipeline: one grid and one shared-gather solve
     (engine.multi), then the full post-solve per threshold; each SORun
-    equals an independent run_so at that threshold."""
-    dev = resolve_device(params.device)
+    equals an independent run_so at that threshold. ``grid`` and ``mesh``
+    as in run_so."""
+    dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
     runs: list[SORun] = []
     with profile_trace(params.profile_dir, dev):
         grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
-                                                dev, timer, grid)
+                                                dev, timer, grid, mesh)
         t0 = _time.perf_counter()
         with timer.phase("R_Delta solve (multi)"):
             multi = solve_rvir_multi(grid, centers, rgtp, thresholds,

@@ -7,18 +7,22 @@ center. The pass reads only particle data, so it runs batched over all
 halos before the solve: K1 (K3 on giant tiers) gathers the Rgtp ball
 from a copy of the payload with phi in the mass row, unsorted, and an
 argmin over the slots picks the particle (its source row comes from the
-kernel's idx output).
+kernel's idx output). On a sharded grid each shard's payload gets its
+copy and the argmin runs over the shards' merged rows.
 
 Ties: the reference keeps the first minimum in kd-tree order; torch's
 argmin keeps the first minimum in K1's slot order, which is so_tpu's
-chunk layout. With distinct phi the chosen particle is the same; with
-equal phi it may differ, as so_tpu's may.
+chunk layout (on a sharded grid: (shard, slot) order). With distinct phi
+the chosen particle is the same; with equal phi it may differ, as
+so_tpu's may.
 
 An empty Rgtp ball (the reference reads stale list memory there) keeps
 the original center.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,17 +32,27 @@ from ..ops.grid import CellGrid
 from .solver import _dispatch_chunks, _k_limit, _pick_level_span
 
 
-def _recenter_stage(grid: CellGrid, phi_soa, level: int, K: int, S: int,
-                    centers, radii):
-    """(new centers, overflow) for one capacity tier."""
+def _with_phi(grid: CellGrid) -> CellGrid:
+    """The grid with a payload copy that holds phi in the mass row (32 B a
+    particle, for this pass only)."""
+    if grid.phi is None:
+        raise ValueError("-pot needs particle potentials (build_grid phi=)")
+    soa = grid.soa8t.clone()
+    soa[3, :grid.n] = grid.phi
+    return dataclasses.replace(grid, soa8t=soa)
+
+
+def _recenter_stage(grid: CellGrid, level: int, K: int, S: int, centers,
+                    radii):
+    """(new centers, overflow) for one capacity tier on a _with_phi grid."""
     d2, ch, idx, overflow = unsorted_gather(
         grid, level, centers, radii, radii * radii, K, S, chans=("mass",),
-        want_idx=True, payload=phi_soa)
+        want_idx=True)
     ok = torch.isfinite(d2)
     phi = torch.where(ok, ch[:, 0], torch.full_like(d2, torch.inf))
     amin = torch.argmin(phi, dim=1)       # the first minimum in slot order
     rows = torch.arange(centers.shape[0], device=centers.device)
-    best = grid.pos_a()[torch.clamp(idx[rows, amin].long(), 0, grid.n - 1)]
+    best = grid.pos_a()[torch.clamp(idx[rows, amin].long(), min=0)]
     found = ok.any(dim=1)
     return torch.where(found[:, None], best, centers), overflow
 
@@ -50,16 +64,11 @@ def recenter_most_bound(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,
     dispatches few: on the H100 this loop beats derived.ball_rounds'
     footprint-sized tiers, whose extra pass and dispatches cost more than
     the slots they save on Rgtp balls."""
-    if grid.phi is None:
-        raise ValueError("-pot needs particle potentials (build_grid phi=)")
     dev = grid.device
     centers = np.asarray(centers, np.float32)
     rgtp = np.asarray(rgtp, np.float32)
     out = centers.copy()
-    # the payload with phi in the mass row (32 B per particle), for this
-    # pass only
-    phi_soa = grid.soa8t.clone()
-    phi_soa[3, :grid.n] = grid.phi
+    phi_grid = grid.map_shards(_with_phi)
     kl = _k_limit(grid)
     todo = np.arange(centers.shape[0])
     capacity = k0_cap
@@ -67,9 +76,9 @@ def recenter_most_bound(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,
         K = int(min(capacity, kl))
         level, S = _pick_level_span(grid, float(rgtp[todo].max()))
         still = []
-        for _, part in _dispatch_chunks(todo, K):
+        for _, part in _dispatch_chunks(todo, grid.parts * K):
             nc, ovf = _recenter_stage(
-                grid, phi_soa, level, K, S,
+                phi_grid, level, K, S,
                 torch.as_tensor(centers[part], device=dev),
                 torch.as_tensor(rgtp[part], device=dev))
             ovf = ovf.cpu().numpy()

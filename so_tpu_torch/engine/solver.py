@@ -37,7 +37,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.gather import cell_ranges, unsorted_gather
+from ..ops.gather import unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
@@ -292,7 +292,7 @@ def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
         if idx.size == 0:
             return total
         level, S = _pick_level_span(grid, float(rads.max()))
-        for lo, part in _dispatch_chunks(idx, K):
+        for lo, part in _dispatch_chunks(idx, grid.parts * K):
             packed = _classify_stage(
                 grid, level, K, S, n_members,
                 torch.as_tensor(centers[part], device=dev),
@@ -324,9 +324,9 @@ class SolveResult:
 
 def _k_limit(grid) -> int:
     """Capacity ceiling guaranteed gather-complete on the slab path: the
-    particle count plus a run's worst alignment padding (st % chunk in
-    front, the round-up behind: < 2 chunks) for each of at most S_MAX^3
-    merged runs. so_tpu budgets one chunk per cell and leaves tiers above
+    particle count (of a shard, on a sharded grid) plus a run's worst
+    alignment padding (st % chunk in front, the round-up behind: < 2
+    chunks) for each of at most S_MAX^3 merged runs. so_tpu budgets one chunk per cell and leaves tiers above
     its slab ceiling to an XLA gather without padding; the port's kernel
     serves every tier, so its ceiling must hold the padding itself."""
     extra = (S_MAX ** 3) * 2 * grid.chunk
@@ -335,8 +335,8 @@ def _k_limit(grid) -> int:
 
 def _pick_level(grid: CellGrid, rmax: float) -> int:
     """Finest level whose S_MAX-cube covers radius rmax and whose mean
-    cell occupancy is at least 3/4 of a slab chunk (so chunks arrive
-    mostly full)."""
+    cell occupancy (of a shard's cells, on a sharded grid) is at least 3/4
+    of a slab chunk (so chunks arrive mostly full)."""
     min_occ = (3 * grid.chunk) // 4
     period = grid.period_np()
     for g in range(grid.m + 1):
@@ -356,22 +356,16 @@ def _pick_level_span(grid: CellGrid, rmax: float) -> tuple[int, int]:
     return g, max(span, 1)
 
 
-def _chunk_for(K: int, slot_budget: int) -> int:
-    """Halos per dispatch: B*K slot buffers within the budget."""
-    return max(1, min(16384, slot_budget // K))
+def _chunk_for(slots: int, slot_budget: int) -> int:
+    """Halos per dispatch: B * slots buffers within the budget, where
+    ``slots`` is a halo's row width (grid.parts * K)."""
+    return max(1, min(16384, slot_budget // slots))
 
 
-def _dispatch_chunks(sel: np.ndarray, K: int):
-    chunk = _chunk_for(K, SOLVE_SLOT_BUDGET)
+def _dispatch_chunks(sel: np.ndarray, slots: int):
+    chunk = _chunk_for(slots, SOLVE_SLOT_BUDGET)
     for lo in range(0, sel.size, chunk):
         yield lo, sel[lo:lo + chunk]
-
-
-def _foot_stage(grid: CellGrid, level: int, S: int, centers, radii):
-    """Exact per-halo slab-slot footprints (cell_ranges totals)."""
-    _, _, _, total = cell_ranges(grid, level, centers, radii, radii * radii,
-                                 S, align=grid.chunk)
-    return total
 
 
 def solve_rvir(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,

@@ -133,6 +133,16 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(device: torch.device, name: str, *args) -> None:
+    """Call the library's entry point ``name`` with ``args`` and the
+    device's current stream, with that device current (the runtime
+    launches there, and a mesh puts shards on other cards than the
+    current one); raise on a failed launch."""
+    with torch.cuda.device(device):
+        rc = getattr(library(), name)(*args, stream_ptr(device))
+    check(rc, name)
+
+
 @lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """The card's streaming multiprocessors (the kernels' launch shapes

@@ -15,6 +15,11 @@
 
 Capacity K and cube side S are per-dispatch values; the host escalates K
 when a ball overflows, mirroring the reference's nnList regrow.
+
+The engine gathers only through slab_gather, unsorted_gather and
+footprint. A grid that is not a CellGrid (parallel.ShardedGrid) serves
+them itself: each particle shard gathers at capacity K and the shards'
+rows are merged, P * K slots a halo.
 """
 
 from __future__ import annotations
@@ -139,11 +144,11 @@ def cell_ranges(grid: CellGrid, level: int, centers, radii, r2_mask, S: int,
 
 
 def _slotted(grid: CellGrid, ranges, centers, r2_mask, K: int, chans: tuple,
-             want_idx: bool, payload=None):
+             want_idx: bool):
     """(d2, channels, idx) in slot order from cell_ranges' output: K1 for
     K <= PIECE_K_MIN, else K3."""
     st, cnt, q, _ = ranges
-    soa = grid.soa8t if payload is None else payload
+    soa = grid.soa8t
     if K > PIECE_K_MIN:
         desc = piece_descriptors(st, cnt, q, K, grid.chunk)
         rows = piece_gather_rows
@@ -154,17 +159,27 @@ def _slotted(grid: CellGrid, ranges, centers, r2_mask, K: int, chans: tuple,
                 chans, want_idx)
 
 
+def footprint(grid: CellGrid, level: int, centers, radii, S: int):
+    """Each ball's slab-slot footprint at ``level``: the capacity K that
+    gathers it whole (cell_ranges' total)."""
+    if not isinstance(grid, CellGrid):
+        return grid.footprint(level, centers, radii, S)
+    return cell_ranges(grid, level, centers, radii, radii * radii, S,
+                       align=grid.chunk)[3]
+
+
 def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
-                    K: int, S: int, chans: tuple = (), want_idx: bool = False,
-                    payload=None):
+                    K: int, S: int, chans: tuple = (), want_idx: bool = False):
     """(d2, channels, idx, overflow) in the kernels' slot order, no row
     sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
-    names (slab_gather.CHANNEL_ROWS); ``payload`` replaces the grid's
-    (-pot puts phi in the mass row)."""
+    names (slab_gather.CHANNEL_ROWS)."""
+    if not isinstance(grid, CellGrid):
+        return grid.unsorted_gather(level, centers, radii, r2_mask, K, S,
+                                    chans, want_idx)
     ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
                          align=grid.chunk)
     d2, ch, idx = _slotted(grid, ranges, centers, r2_mask, K, chans,
-                           want_idx, payload)
+                           want_idx)
     return d2, ch, idx, ranges[3] > K
 
 
@@ -185,6 +200,9 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     ``channels`` is drawn from {"mass", "mv", "meta", "idx"}: "mv" gives a
     (B, K, 3) m*v stack, "idx" the exact int32 source row (-1 off-ball).
     """
+    if not isinstance(grid, CellGrid):
+        return grid.slab_gather(level, centers, radii, r2_mask, K, S,
+                                channels)
     kernel_chans = []
     for ch in channels:
         if ch == "mv":

@@ -96,6 +96,15 @@ class CellGrid:
     def period_np(self) -> np.ndarray:
         return self.period.cpu().numpy()
 
+    # A grid as the engine sees it: one shard here; parallel.ShardedGrid
+    # has several, each gathered at the same capacity K, so a merged row
+    # holds parts * K slots.
+    parts = 1
+
+    def map_shards(self, fn) -> "CellGrid":
+        """``fn`` applied to each shard: here, to the grid itself."""
+        return fn(self)
+
 
 def detect_uniform_mass(mass) -> float | None:
     """The single f32 mass value when every entry is bit-identical, else
@@ -173,12 +182,17 @@ def _level_starts(code_s: torch.Tensor, m: int) -> tuple:
 
 def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                period=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0),
-               m: int | None = None, *, device) -> CellGrid:
+               m: int | None = None, chunk: int | None = None,
+               valid=None, *, device) -> CellGrid:
     """Build the grid from host particle arrays on ``device`` ("cuda" or
     "cpu"; no default, so a run never lands on a device by accident).
 
     ``period``/``center`` follow the reference's -p / -c / -cx/-cy/-cz
-    flags (defaults period=1^3, center=0^3).
+    flags (defaults period=1^3, center=0^3). ``m`` and ``chunk`` default
+    to choose_m and choose_chunk of the particle count. Rows where the
+    bool mask ``valid`` is False (a particle shard's padding) get a Morton
+    code past every cell: they sort to the tail and no cell, so no gather,
+    reaches them.
     """
     device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -197,13 +211,18 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     lo = center - period * 0.5
     if m is None:
         m = choose_m(n)
-    chunk = choose_chunk(n, m)
+    if chunk is None:
+        chunk = choose_chunk(n, m)
 
     nc = 1 << m
     u = pos - lo
     u = u - torch.floor(u / period) * period      # wrap to [0, period)
     ic = torch.clip((u / period * nc).to(torch.int32), 0, nc - 1)
     code = morton_encode(ic[:, 0], ic[:, 1], ic[:, 2])
+    if valid is not None:
+        code = torch.where(torch.as_tensor(np.asarray(valid, bool),
+                                           device=device),
+                           code, 1 << (3 * m))
     perm = torch.argsort(code, stable=True)
     starts = _level_starts(code[perm], m)
     soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],

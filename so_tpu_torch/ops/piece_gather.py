@@ -190,13 +190,12 @@ def piece_gather_rows(soa8t, src, t0, v, lo, hi, n_pieces, n_chunks,
                       device=dev)
     idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
            else None)
-    rc = _cuda.library().so_piece_gather(
-        soa8t.data_ptr(), soa8t.shape[1],
+    _cuda.launch(
+        dev, "so_piece_gather", soa8t.data_ptr(), soa8t.shape[1],
         *(x.data_ptr() for x in (src, t0, v, lo, hi, n_pieces, n_chunks)),
         NP, centers.data_ptr(), period.data_ptr(), r2.data_ptr(), B, K,
         chunk, len(codes), *codes, *([0] * (5 - len(codes))),
         out.data_ptr(), idx.data_ptr() if idx is not None else None,
-        pieces_per_block(B, NP, _cuda.sm_count(dev)), _cuda.stream_ptr(dev))
-    _cuda.check(rc, "so_piece_gather")
+        pieces_per_block(B, NP, _cuda.sm_count(dev)))
     launches += 1
     return out[:, 0], out[:, 1:], idx

@@ -93,10 +93,9 @@ def _seq_cumsum_cuda(x: torch.Tensor, n_valid):
     if B and K:
         nv = None if n_valid is None else n_valid.to(torch.int64).contiguous()
         rows = rows_per_block(B, K, _cuda.sm_count(x.device))
-        rc = _cuda.library().so_seqsum_rows(
-            x.data_ptr(), y.data_ptr(), None if nv is None else nv.data_ptr(),
-            B, K, rows, _cuda.stream_ptr(x.device))
-        _cuda.check(rc, "so_seqsum_rows")
+        _cuda.launch(
+            x.device, "so_seqsum_rows", x.data_ptr(), y.data_ptr(),
+            None if nv is None else nv.data_ptr(), B, K, rows)
         launches += 1
         shape_launches[(B, K)] += 1
     return y

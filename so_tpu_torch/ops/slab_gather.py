@@ -224,10 +224,8 @@ def slab_gather_rows(soa8t, a0, lo, hi, n_total, centers, period, r2,
     out = torch.empty((B, 1 + len(codes), K), dtype=torch.float32, device=dev)
     idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
            else None)
-    rc = _cuda.library().so_slab_gather(
-        *_launch_args(*args, codes), out.data_ptr(),
-        idx.data_ptr() if want_idx else None, _cuda.stream_ptr(dev))
-    _cuda.check(rc, "so_slab_gather")
+    _cuda.launch(dev, "so_slab_gather", *_launch_args(*args, codes),
+                 out.data_ptr(), idx.data_ptr() if want_idx else None)
     launches += 1
     return out[:, 0], out[:, 1:], idx
 
@@ -259,11 +257,9 @@ def slab_gather_sorted_rows(soa8t, a0, lo, hi, n_total, centers, period, r2,
     idx = (torch.empty((B, K), dtype=torch.int32, device=dev) if want_idx
            else None)
     n_in = torch.empty((B,), dtype=torch.int64, device=dev)
-    rc = _cuda.library().so_slab_gather_sorted(
-        *_launch_args(*args, codes), out.data_ptr(),
-        idx.data_ptr() if want_idx else None, n_in.data_ptr(),
-        sorted_threads(K), _cuda.stream_ptr(dev))
-    _cuda.check(rc, "so_slab_gather_sorted")
+    _cuda.launch(dev, "so_slab_gather_sorted", *_launch_args(*args, codes),
+                 out.data_ptr(), idx.data_ptr() if want_idx else None,
+                 n_in.data_ptr(), sorted_threads(K))
     launches += 1
     sorted_launches += 1
     return out[0], list(out[1:].unbind(0)), idx, n_in

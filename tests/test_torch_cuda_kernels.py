@@ -445,14 +445,13 @@ def test_k2_adversarial_rows(dev):
     assert not torch.equal(torch.cumsum(x, dim=1), seqsum.seq_cumsum(x))
 
 
-def test_pipeline_cuda_matches_cpu(dev):
-    """The whole single-threshold pipeline gives the same bits on the card
-    and on the CPU (the stable row sort fixes the tie order on both)."""
+def _pipeline_box():
+    """A three-species clumpy box (11,500 particles) and a catalog factory
+    of its 3 clump centers."""
     sys.path.insert(0, HERE)
     from fixtures import make_clumpy_box
     from so_tpu_torch.io.catalogs import GroupCatalog
-    from so_tpu_torch.io.tipsy import DARK, GAS, STAR, ParticleSet, TipsyHeader
-    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader
 
     rng = np.random.default_rng(12)
     clumps = [dict(center=(0.1, 0.1, 0.1), n=2000, rmax=0.07,
@@ -477,7 +476,16 @@ def test_pipeline_cuda_matches_cpu(dev):
                             gtp_mass=np.asarray([0.2, 0.01, 0.08],
                                                 np.float32),
                             n_in_gtp=G, gtp_time=1.0)
+    return ps, cat
 
+
+def test_pipeline_cuda_matches_cpu(dev):
+    """The whole single-threshold pipeline gives the same bits on the card
+    and on the CPU (the stable row sort fixes the tie order on both)."""
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+
+    ps, cat = _pipeline_box()
     sp = (DARK, GAS, STAR)
     k0, s0 = slab_gather.launches, seqsum.launches
     f0 = slab_gather.sorted_launches
@@ -516,6 +524,66 @@ def test_pipeline_cuda_matches_cpu(dev):
         assert a.tobytes() == b.tobytes()
     for s in sp:
         assert g.derived.profiles[s].tobytes() == c.derived.profiles[s].tobytes()
+
+
+def _fields(run, sp):
+    """Every output field of an SORun as bytes, and its member lists."""
+    out = {f"solve.{f}": getattr(run.solve, f).tobytes()
+           for f in ("code", "mvir", "rvir", "j", "d2cut", "vcm")}
+    out.update({f"conflicts.{f}": getattr(run.conflicts, f).tobytes()
+                for f in ("igrp", "n_subsumed", "n_ignored", "mvir", "rvir")})
+    out.update({f"derived.{f}": getattr(run.derived, f).tobytes()
+                for f in ("vcirc", "rmass", "rmax", "vmax")})
+    out.update({f"profile {s}": run.derived.profiles[s].tobytes()
+                for s in sp})
+    out["members"] = [None if m is None else m.tobytes()
+                      for m in run.members]
+    return out
+
+
+def test_mesh_cuda_matches_run_so_and_cpu(dev):
+    """run_so_sharded on a 1x4 mesh of one card (the particles in 4
+    shards, every gather merged over them) runs K1's sorted form and K2,
+    and equals the card's run_so and the CPU's 1x4 run in every field."""
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.parallel import make_mesh, run_so_sharded
+
+    ps, cat = _pipeline_box()
+    sp = (DARK, GAS, STAR)
+    f0, s0 = slab_gather.sorted_launches, seqsum.launches
+    g = run_so_sharded(ps, cat(), SOParams(species=sp),
+                       make_mesh(1, 4, devices=[dev] * 4))
+    assert slab_gather.sorted_launches > f0 and seqsum.launches > s0
+    assert (g.solve.code == 0).all()
+    s = run_so(ps, cat(), SOParams(species=sp, device="cuda"))
+    c = run_so_sharded(ps, cat(), SOParams(species=sp),
+                       make_mesh(1, 4, devices=["cpu"] * 4))
+    assert _fields(g, sp) == _fields(s, sp)
+    assert _fields(g, sp) == _fields(c, sp)
+
+
+def test_mesh_across_cards_matches_run_so(dev):
+    """A mesh over several cards, as --mesh HxP takes them (the first H*P
+    devices): 2x2 on four cards, else 1x2; every field equals run_so's on
+    the first card. Skips with fewer than two cards."""
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.parallel import make_mesh, run_so_sharded
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(*((2, 2) if n >= 4 else (1, 2)))
+    ps, cat = _pipeline_box()
+    sp = (DARK, GAS, STAR)
+    f0, s0 = slab_gather.sorted_launches, seqsum.launches
+    g = run_so_sharded(ps, cat(), SOParams(species=sp, b_pot=True), mesh)
+    assert slab_gather.sorted_launches > f0 and seqsum.launches > s0
+    s = run_so(ps, cat(), SOParams(species=sp, b_pot=True, device="cuda:0"))
+    assert (g.solve.code == 0).all()
+    assert _fields(g, sp) == _fields(s, sp)
+    assert g.catalog.pos.tobytes() == s.catalog.pos.tobytes()
 
 
 def test_cuda_sqrt_and_div_are_correctly_rounded(dev):

@@ -145,9 +145,11 @@ def test_run_so_matches_so_tpu(uniform, monkeypatch):
     assert vars(got.stats) == vars(want.stats)   # the two packages' RunStats
 
 
-@pytest.mark.parametrize("option", [["--mesh", "2x1"], ["--distributed"]])
+@pytest.mark.parametrize("option", [["--distributed"],
+                                    ["--mesh", "2x1", "--distributed"]])
 def test_unported_options_raise(option, tmp_path, capsys):
-    """The multi-device options exit 1 naming their ROADMAP.md item."""
+    """--distributed exits 1 naming its ROADMAP.md item, with --mesh
+    too (so_tpu refuses that pair as well)."""
     from so_tpu_torch.cli import main
 
     d = str(tmp_path)
@@ -157,15 +159,15 @@ def test_unported_options_raise(option, tmp_path, capsys):
               d + "/snap.bin", "--device", "cpu"] + args + option)
     assert e.value.code == 1
     err = capsys.readouterr().err.strip().splitlines()[-1]
-    assert err == (f"{option[0]} is not yet in so_tpu_torch (ROADMAP.md "
-                   "section 1, item 16)")
+    assert err == ("--distributed is not yet in so_tpu_torch (ROADMAP.md "
+                   "section 1, item 4)")
     assert not os.path.exists(d + "/got.sovcirc")
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Full CPU runs through the port's CLI, plain and with -pot --deltas
-    --survey --checkpoint, leave jax, so_tpu (any module) and bench
-    unimported; the native conflict pass is the port's own library, built
+    """Full CPU runs through the port's CLI, plain, with -pot --deltas
+    --survey, with --checkpoint and with --mesh 2x2 (so_tpu_torch.parallel),
+    leave jax, so_tpu (any module) and bench unimported; the native conflict pass is the port's own library, built
     under so_tpu_torch/_build/ (so nothing is built into so_tpu/)."""
     args = generate_inputs("errors", str(tmp_path))   # fixtures use so_tpu.io
     code = f"""
@@ -180,6 +182,9 @@ assert so_tpu_torch.cli.main(base + ["-o", d + "/multi", "-pot", "--deltas",
                                      "178,500", "--survey"] + args) == 0
 assert so_tpu_torch.cli.main(base + ["-o", d + "/ck", "--checkpoint",
                                      d + "/state.npz"] + args) == 0
+assert so_tpu_torch.cli.main(base + ["-o", d + "/mesh", "--mesh", "2x2"]
+                             + args) == 0
+assert "so_tpu_torch.parallel.mesh" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "so_tpu", "bench"))
 assert not bad, bad
@@ -198,3 +203,4 @@ print("JAX_FREE")
     assert os.path.exists(tmp_path / "got.sogrp")
     assert os.path.exists(tmp_path / "multi.d500.sogrp")
     assert os.path.exists(tmp_path / "state.npz")
+    assert os.path.exists(tmp_path / "mesh.sogrp")
