@@ -92,8 +92,24 @@ script exits nonzero:
      and the CLI's --mesh 1x1 against the plain CLI on phase 6's files.
      Each [mesh] line counts the halos whose bits or member order differ
      and the equal-d2 pairs in their balls.
+ 13. --distributed: the standard box (both mass kinds) written as a tipsy
+     snapshot and .gtp; the port's CLI in this process on cuda:0 with
+     -grp -gtp -subsumed -ignored is the witness; then
+     `python -m so_tpu_torch ... --distributed` as one rank (the default
+     backend: NCCL for the card's tensors, gloo for host arrays) and as
+     two ranks sharing cuda:0 (--dist-backend gloo; NCCL refuses two
+     ranks on one card), spawned with torchrun's variables and a free
+     port. Every output file must equal the witness's but for the run
+     time; every rank reports its K1/K1s/K2/K3 launches ([dist] lines;
+     K1s on every rank, K2 in the general-mass runs), with the SO CPU
+     Time (solve through stats), e2e seconds and rank 0's phase seconds
+     beside the witness's. After phase 10, two ranks on the
+     2^18 files of phase 10: --deltas 200,340,667 and -pot against phase
+     10's files, and -pot --checkpoint twice (the second resumes from the
+     two rank shards) with the same bytes.
 
-Phases 4, 7-10, each sharded run of 12 and each giant run zero every kernel's launch counter
+Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
+and each giant run zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them (9's card-against-CPU check runs after its count is read), and
 log K2's launches per (B, K). The line before
@@ -1580,6 +1596,243 @@ def phase_mesh_cli():
         f"{time.perf_counter() - t0:.2f} s for both")
 
 
+# one rank of --distributed runs: the port's CLI once a job, each job in
+# its own process group (a port of its own), the launch counters zeroed
+# before each; after each, its counts and e2e seconds on one line
+DIST_RANK = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+from so_tpu_torch.cli import main
+from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
+for port, args in json.loads(sys.argv[2]):
+    os.environ["MASTER_PORT"] = str(port)
+    slab_gather.launches = slab_gather.sorted_launches = 0
+    seqsum.launches = piece_gather.launches = 0
+    t0 = time.perf_counter()
+    if main(args) != 0:
+        sys.exit(1)
+    print("[rank] " + json.dumps(dict(
+        e2e=time.perf_counter() - t0, K1=slab_gather.launches,
+        K1s=slab_gather.sorted_launches, K2=seqsum.launches,
+        K3=piece_gather.launches)), flush=True)
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(W, jobs, device="cuda", backend=None):
+    """W rank processes of the port's CLI with --distributed, torchrun's
+    variables set by hand (localhost, a free port a job). ``jobs`` are
+    (tag, CLI args, kernels that must launch) run in turn in the same
+    processes. Every rank must exit 0 and report launches of each job's
+    kernels. Returns per job rank 0's output, its solve seconds and the
+    largest e2e seconds (SO CPU Time: the run from the solve through the
+    stats, as the CLI reports it)."""
+    extra = ["--distributed", "--device", device] + (
+        ["--dist-backend", backend] if backend else [])
+    plan = json.dumps([(free_port(), args + extra) for _, args, _ in jobs])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_RANK, HERE, plan], cwd=HERE,
+        env=dict(os.environ, MASTER_ADDR="localhost", WORLD_SIZE=str(W),
+                 RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(W)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{jobs[0][0]}...: rank {r} exited "
+                               f"{p.returncode}:\n" + out[-3000:])
+    # each rank's output, cut after each job's [rank] line
+    parts = [out.split("[rank] ")[1:] for out in outs]
+    text0 = outs[0].split("[rank] ")[:-1]
+    results = []
+    for j, (tag, _, need) in enumerate(jobs):
+        counts = [json.loads(part[j].splitlines()[0]) for part in parts]
+        for r, c in enumerate(counts):
+            if any(c[k] <= 0 for k in need):
+                raise AssertionError(f"{tag}: rank {r} never ran a kernel "
+                                     f"of the path: {c}")
+            for k in LAUNCHES:
+                LAUNCHES[k] += c[k]
+        lines = text0[j].splitlines()
+        solve = float(next(ln for ln in lines
+                           if ln.startswith("SO CPU Time:")).split()[-1])
+        where = next(ln for ln in lines
+                     if ln.startswith("--distributed: rank 0"))
+        log(f"[dist {tag}] {where[len('--distributed: '):]}"
+            f"{'' if j else ' (first job of the processes)'}; launches per "
+            "rank: " + "; ".join(
+                ", ".join(f"{k} {c[k]}" for k in ("K1", "K1s", "K2", "K3"))
+                for c in counts))
+        results.append((text0[j], solve, max(c["e2e"] for c in counts)))
+    return results
+
+
+def phase_table(text):
+    """The phase seconds of a --verbose run's timer report, on one line."""
+    lines = text.splitlines()
+    if "so_tpu_torch phase timings:" not in lines:
+        return ""
+    import re
+
+    out = []
+    for ln in lines[lines.index("so_tpu_torch phase timings:") + 1:]:
+        m = re.match(r"  (\S.*?)\s+([0-9.]+s)(\s|$)", ln)
+        if m is None:
+            break
+        out.append(f"{m.group(1)} {m.group(2)}")
+    return "; phases: " + ", ".join(out)
+
+
+def cli_in_process(args):
+    """The port's CLI in this process: (the SO CPU Time it reports, e2e
+    seconds, its stderr)."""
+    import contextlib
+    import io
+
+    from so_tpu_torch.cli import main as cli_main
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        if cli_main(args) != 0:
+            raise RuntimeError(f"CLI {args} failed")
+    e2e = time.perf_counter() - t0
+    return float(next(ln for ln in err.getvalue().splitlines()
+                      if ln.startswith("SO CPU Time:")).split()[-1]), e2e, \
+        err.getvalue()
+
+
+def same_outputs(tag, got, want, exts):
+    """Two runs' files byte for byte but for the run time and the names of
+    the profile files the catalog lists."""
+    for ext in exts:
+        body = [[ln for ln in open(f"{b}.{ext}", "rb")
+                 if not (ln.startswith(b"# Run on") or b"written to" in ln)]
+                for b in (got, want)]
+        if body[0] != body[1] or not body[0]:
+            raise AssertionError(f"{tag}: .{ext} differs from the "
+                                 "one-process CLI's")
+
+
+def write_inputs(base, ps, cat):
+    """``base``.bin (the snapshot, its species split) and ``base``.gtp."""
+    import numpy as np
+
+    from so_tpu_torch.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE,
+                                       TipsyHeader, write_tipsy)
+
+    h = ps.header
+    recs = []
+    for dt, sl in ((GAS_DTYPE, slice(0, h.nsph)),
+                   (DARK_DTYPE, slice(h.nsph, h.nsph + h.ndark)),
+                   (STAR_DTYPE, slice(h.nsph + h.ndark, h.nbodies))):
+        r = np.zeros(sl.stop - sl.start, dtype=dt[False])
+        r["mass"], r["pos"], r["vel"] = ps.mass[sl], ps.pos[sl], ps.vel[sl]
+        r["phi"] = ps.phi[sl]
+        recs.append(r)
+    write_tipsy(f"{base}.bin", h, *recs, False)
+    G = cat.n
+    gtp = np.zeros(G, dtype=STAR_DTYPE[False])
+    gtp["mass"], gtp["pos"], gtp["eps"] = cat.gtp_mass, cat.pos, cat.rgtp
+    gtp["tform"] = np.arange(1, G + 1)
+    write_tipsy(f"{base}.gtp", TipsyHeader(time=1.0, nbodies=G, ndim=3,
+                                           nsph=0, ndark=0, nstar=G),
+                None, None, gtp, False)
+
+
+def phase_distributed(box):
+    """--distributed on the standard box: each mass kind through the port's
+    CLI in this process on cuda:0 (the witness), then as one rank (NCCL
+    for the card's tensors) and as two ranks sharing cuda:0 (gloo: NCCL
+    refuses two ranks on one card); every output file must equal the
+    witness's but for the run time. The ranks run both mass kinds in turn
+    in one launch."""
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+
+    out = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_dist")
+    os.makedirs(out, exist_ok=True)
+    flags = ["-grp", "-gtp", "-subsumed", "-ignored", "-delta", "178",
+             "--verbose"]
+    exts = ("sovcirc", "sogrp", "sogtp", "sosub", "soign")
+    kinds = (("uniform", ()), ("species", (DARK, GAS, STAR)))
+    witness = {}
+    for tag, sp in kinds:
+        ps, catalog = particles_and_catalog(box, sp, SEED)
+        write_inputs(f"{out}/{tag}", ps, catalog())
+        witness[tag] = cli_in_process(
+            ["-i", f"{out}/{tag}.gtp", "--tipsy", f"{out}/{tag}.bin", *flags,
+             "-o", f"{out}/{tag}.single", "--device", "cuda:0"])
+        log(f"[dist {tag} witness] one process on cuda:0: particles={ps.n} "
+            f"halos={catalog().n} SO CPU Time {witness[tag][0]:.4f} s e2e "
+            f"{witness[tag][1]:.4f} s{phase_table(witness[tag][2])}")
+    for W, dev, backend in ((1, "cuda", None), (2, "cuda:0", "gloo")):
+        jobs = [(f"{tag} W={W}",
+                 ["-i", f"{out}/{tag}.gtp", "--tipsy", f"{out}/{tag}.bin",
+                  *flags, "-o", f"{out}/{tag}.w{W}"],
+                 ("K1", "K1s") + (("K2",) if sp else ())) for tag, sp in kinds]
+        results = run_ranks(W, jobs, dev, backend)
+        for (name, _, _), (tag, _), (text, solve, e2e) in zip(jobs, kinds,
+                                                            results):
+            same_outputs(name, f"{out}/{tag}.w{W}", f"{out}/{tag}.single",
+                         exts)
+            log(f"[dist {name}] {len(exts)} files equal the witness's; "
+                f"SO CPU Time {solve:.4f} s e2e {e2e:.4f} s (witness "
+                f"{witness[tag][0]:.4f} s, {witness[tag][1]:.4f} s; e2e "
+                f"from main() in each rank){phase_table(text)}")
+
+
+def phase_distributed_paths():
+    """--distributed's options on the 2^18 box of phase_cli_paths (general
+    masses, phi), two ranks sharing cuda:0 over gloo: --deltas 200,340,667
+    and -pot against that phase's one-process files, and -pot with
+    --checkpoint twice (the second resumes from the two rank shards) with
+    the same bytes."""
+    paths = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_paths")
+    base = ["-i", f"{paths}/cat.gtp", "--tipsy", f"{paths}/snap.bin", "-grp",
+            "-gtp", "-all"]
+    exts = ("sovcirc", "sogrp", "sogtp", "sodark", "sogas", "sostar")
+    need = ("K1", "K1s", "K2")
+    ck = f"{paths}/dist_state.npz"
+    for r in range(2):
+        if os.path.exists(f"{ck}.rank{r}-of-2.npz"):
+            os.remove(f"{ck}.rank{r}-of-2.npz")
+    runs = ("save", "resume")
+    jobs = [("--deltas", base + ["-o", f"{paths}/dist", "--deltas",
+                                 ",".join(f"{d:g}" for d in DELTAS)], need)]
+    jobs += [(f"-pot --checkpoint {run}",
+              base + ["-o", f"{paths}/dist_{run}", "-pot", "--checkpoint",
+                      ck, "--verbose"], need) for run in runs]
+    results = run_ranks(2, jobs, "cuda:0", "gloo")
+    for d in DELTAS:
+        same_outputs(f"--deltas {d:g}", f"{paths}/dist.d{d:g}",
+                     f"{paths}/multi.d{d:g}", exts)
+    log(f"[dist --deltas] W=2: every threshold's files equal the "
+        f"one-process CLI's; SO CPU Time {results[0][1]:.4f} s e2e "
+        f"{results[0][2]:.4f} s")
+    for run, (text, solve, e2e) in zip(runs, results[1:]):
+        phase = f"checkpoint {run} (segment)"
+        if phase not in text or (run == "resume" and "R_Delta" in text):
+            raise AssertionError(f"--checkpoint {run}: not a {run} run")
+        same_outputs(f"-pot --checkpoint {run}", f"{paths}/dist_{run}",
+                     f"{paths}/pot", exts)
+        log(f"[dist -pot --checkpoint {run}] W=2: files equal the "
+            f"one-process -pot CLI's; SO CPU Time {solve:.4f} s e2e "
+            f"{e2e:.4f} s{phase_table(text)}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "so_tpu_torch")):
         sys.stderr.write("chip_smoke.py: run it from the root of a checkout "
@@ -1622,12 +1875,14 @@ def main():
     timed("-pot", counted, "-pot", phase_pot, box, small)
     timed("--deltas", counted, "--deltas", phase_multi, box)
     timed("--mesh", phase_mesh, box)
+    timed("--distributed", phase_distributed, box)
     del box
     dense = timed("dense box", make_dense_box)
     timed("--survey", counted, "--survey", phase_survey, dense)
     timed("survey classify vs cpu", phase_survey_vs_cpu, dense)
     del dense
     timed("cli paths", counted, "cli paths", phase_cli_paths, small)
+    timed("--distributed 2^18", phase_distributed_paths)
     timed("giant", phase_giant, giant)
     del giant
     timed("giant vs cpu", phase_giant_vs_cpu)

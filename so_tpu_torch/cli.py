@@ -3,14 +3,22 @@
 Takes the reference's flags with so_tpu's semantics and defaults:
 -i -o -z -O -L -s -rho -delta -m -p -c -cx -cy -cz -std -M -u -list -grp
 -gtp -subsumed -ignored -pot -stat -mark -dark -gas -star -all, plus
-so_tpu's --tipsy, --verbose, --deltas, --survey, --checkpoint, --profile
-and --mesh. ``--device {cuda,cpu}`` (default cuda) picks the device;
-without a usable CUDA card a cuda run fails instead of moving to the CPU.
-``--mesh HxP`` shards the run over H x P devices (parallel/mesh.py): the
-first H * P CUDA devices, or H * P times the CPU with --device cpu.
+so_tpu's --tipsy, --verbose, --deltas, --survey, --checkpoint, --profile,
+--mesh and --distributed. ``--device {cuda,cuda:N,cpu}`` (default cuda)
+picks the device; without a usable CUDA card a cuda run fails instead of
+moving to the CPU. ``--mesh HxP`` shards the run over H x P devices
+(parallel/mesh.py): the first H * P CUDA devices, or H * P times the CPU
+with --device cpu.
 
-so_tpu's --distributed is not ported yet: it exits with status 1 and a
-one-line message naming its ROADMAP.md item.
+``--distributed`` makes the process one rank of a torch.distributed group
+(parallel/driver.py): start the same command on every rank with
+torchrun's variables set (``torchrun --nproc-per-node W -m so_tpu_torch
+... --distributed``, or MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and
+LOCAL_RANK by hand). Each rank reads only its segment of the --tipsy
+snapshot; "cuda" is the card LOCAL_RANK. ``--dist-backend`` names the
+torch.distributed backend: by default "gloo" with --device cpu and
+"cpu:gloo,cuda:nccl" (NCCL for the card's tensors, one card a rank) on a
+card; "gloo" lets several ranks share a card.
 """
 
 from __future__ import annotations
@@ -21,10 +29,9 @@ import time as _time
 import numpy as np
 
 from .cosmology import rhovir_over_rhobar
-from .engine.pipeline import (NOT_PORTED, SOParams, not_ported, run_so,
-                              run_so_multi)
+from .engine.pipeline import SOParams, run_so, run_so_multi
 from .io.catalogs import read_gtp_list, read_mark, read_stat
-from .io.tipsy import DARK, GAS, STAR, MARK, read_tipsy
+from .io.tipsy import DARK, GAS, STAR, MARK, read_header, read_tipsy
 from .io.writers import (SPECIES_EXT, write_array_file, write_profile_file,
                          write_sogtp, write_sovcirc_header,
                          write_sovcirc_rows)
@@ -44,24 +51,21 @@ python -m so_tpu_torch -i <SKID .gtp file> [-o <outfilebase>]
       [-p <xyzPeriod>]  [-c <xyzCenter>]
       [-cx <xCenter>]  [-cy <yCenter>]  [-cz <zCenter>]
       [-u <fMassUnit> <fMpcUnit>]  [-pot]
-      [--tipsy <snapshot>] [--verbose] [--device {cuda,cpu}]
+      [--tipsy <snapshot>] [--verbose] [--device {cuda,cuda:N,cpu}]
       [--deltas <d1,d2,...>] [--survey] [--checkpoint <state.npz>]
       [--profile <logdir>] [--mesh HxP]
+      [--distributed [--dist-backend <torch.distributed backend>]]
 
 Spherical-overdensity halo characterization on PyTorch (CUDA kernels on
 an NVIDIA GPU, or the plain torch versions with --device cpu). Flags and
 outputs follow so_tpu; see `python -m so_tpu` for their descriptions.
-Not yet in this package: --distributed.
+--distributed runs one rank of a torchrun job (MASTER_ADDR, MASTER_PORT,
+WORLD_SIZE, RANK, LOCAL_RANK), reading only its snapshot segment.
 """
 
 
 def usage() -> "NoReturn":
     sys.stderr.write(USAGE)
-    raise SystemExit(1)
-
-
-def refuse(option: str) -> "NoReturn":
-    sys.stderr.write(not_ported(option) + "\n")
     raise SystemExit(1)
 
 
@@ -94,6 +98,8 @@ def main(argv=None) -> int:
     device = "cuda"
     b_pot = b_survey = False
     deltas = checkpoint = profile_dir = mesh_shape = None
+    b_distributed = False
+    dist_backend = None
 
     def need(i):
         if i >= len(argv):
@@ -178,8 +184,9 @@ def main(argv=None) -> int:
             verbose = True; i += 1
         elif a == "--device":
             i += 1; device = need(i); i += 1
-            if device not in ("cuda", "cpu"):
-                sys.stderr.write("--device expects cuda or cpu\n")
+            if device not in ("cuda", "cpu") and not (
+                    device.startswith("cuda:") and device[5:].isdigit()):
+                sys.stderr.write("--device expects cuda, cuda:N or cpu\n")
                 raise SystemExit(1)
         elif a == "--profile":
             i += 1; profile_dir = need(i); i += 1
@@ -202,8 +209,11 @@ def main(argv=None) -> int:
                 sys.stderr.write("--mesh expects HxP, e.g. --mesh 2x4\n")
                 raise SystemExit(1)
             i += 1
-        elif a in NOT_PORTED:
-            refuse(a)
+        elif a == "--distributed":
+            # one rank of a torch.distributed job (parallel/driver.py)
+            b_distributed = True; i += 1
+        elif a == "--dist-backend":
+            i += 1; dist_backend = need(i); i += 1
         else:
             usage()
 
@@ -222,20 +232,61 @@ def main(argv=None) -> int:
             sys.stderr.write(f"ERROR opening file {name or a[0]}\n")
             raise SystemExit(1)
 
-    # snapshot from stdin (so.c:457) or --tipsy
-    src = tipsy_file if tipsy_file is not None else sys.stdin.buffer
-    particles = checked(read_tipsy, src, b_standard,
-                        name=tipsy_file or "stdin")
-    h = particles.header
+    is_p0 = True
+    transport = None
+    if b_distributed:
+        # each rank reads its own segment of the snapshot: here the header
+        # only (the counts)
+        if tipsy_file is None:
+            sys.stderr.write("--distributed requires --tipsy <file> "
+                             "(snapshot segments are seek-read per rank)\n")
+            raise SystemExit(1)
+        if mesh_shape is not None:
+            # the rank's mesh comes from the process layout
+            sys.stderr.write("--distributed cannot be combined with --mesh\n")
+            raise SystemExit(1)
+        from .parallel.distributed import (TorchTransport, default_backend,
+                                           init_distributed, rank_device)
+
+        backend = dist_backend or default_backend(device)
+        if not init_distributed(backend):
+            sys.stderr.write(
+                "--distributed: no coordinator configured (set MASTER_ADDR, "
+                "MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK, or start "
+                "the ranks with torchrun)\n")
+            raise SystemExit(1)
+        dev = rank_device(device)
+        transport = TorchTransport()
+        is_p0 = transport.pid == 0
+        sys.stderr.write(f"--distributed: rank {transport.pid} of "
+                         f"{transport.nproc} on {dev}, backend {backend}\n")
+        with open(tipsy_file, "rb") as fp:
+            h = checked(read_header, fp, b_standard, name=tipsy_file)
+        particles = None
+        n_particles = h.nbodies
+    else:
+        # snapshot from stdin (so.c:457) or --tipsy
+        src = tipsy_file if tipsy_file is not None else sys.stdin.buffer
+        particles = checked(read_tipsy, src, b_standard,
+                            name=tipsy_file or "stdin")
+        h = particles.header
+        n_particles = particles.n
     # the reference stores the header time in a float (kd->fTime, kd2.h:119);
     # the redshift default and the .sogtp header inherit that rounding
     f_time = float(np.float32(h.time))
-    sys.stderr.write(f"nDark:{h.ndark} nGas:{h.nsph} nStar:{h.nstar}\n")
-    sys.stderr.write(f"Read {particles.n} particles from TIPSY file.\n")
+    if is_p0:
+        sys.stderr.write(f"nDark:{h.ndark} nGas:{h.nsph} nStar:{h.nstar}\n")
+        sys.stderr.write(f"Read {n_particles} particles from TIPSY file.\n")
 
+    mask = None
     if b_mark:
-        particles.mark, nmark = checked(read_mark, mark_file, particles.n)
-        sys.stderr.write(f"{nmark} mark particles read from {mark_file}\n")
+        # the mask of every particle; a rank keeps its segment's
+        mask, nmark = checked(read_mark, mark_file, n_particles)
+        if particles is not None:
+            particles.mark = mask
+        if is_p0:
+            sys.stderr.write(f"{nmark} mark particles read from "
+                             f"{mark_file}\n")
 
     if not b_redshift:
         f_redshift = float(np.float32(1.0 / f_time - 1.0))   # so.c:470-472
@@ -248,11 +299,13 @@ def main(argv=None) -> int:
     run_time = _time.time()
     catalog = checked(read_gtp_list, gtp_file, list_file, f_min_mass,
                       b_standard)
-    sys.stderr.write(f"Read {catalog.n} groups to process.\n")
+    if is_p0:
+        sys.stderr.write(f"Read {catalog.n} groups to process.\n")
 
     if stat_file is not None:
         nrep = checked(read_stat, catalog, stat_file, name=stat_file)
-        sys.stderr.write(f"Replaced {nrep} group centers.\n")
+        if is_p0:
+            sys.stderr.write(f"Replaced {nrep} group centers.\n")
         if nrep != catalog.n:
             sys.stderr.write("ERROR in reading .stat file!\n")
             raise SystemExit(1)
@@ -293,54 +346,92 @@ def main(argv=None) -> int:
                              f"{e}\n")
             raise SystemExit(1)
 
+    def write_particle_array(path, run, field):
+        """A per-particle tipsy-array file. Under --distributed the
+        conflict state holds the rank's segment only and every rank writes
+        its byte range (called on every rank)."""
+        vals = getattr(run.conflicts, field)
+        if transport is not None:
+            from .parallel.driver import write_array_file_segments
+
+            write_array_file_segments(path, vals, run.conflicts.n_global,
+                                      transport)
+        else:
+            write_array_file(path, vals)
+
     def write_outputs(base, run, threshold, threshold_user):
-        with open(f"{base}.sovcirc", "w") as fp_out:
-            write_sovcirc_header(fp_out, run_time, gtp_file, list_file,
-                                 stat_file, np.float32(threshold),
-                                 threshold_user, f_redshift, f_omega,
-                                 f_lambda, b_periodic, f_period, f_center,
-                                 f_min_mass, n_members, b_pot, f_mass_unit,
-                                 f_mpc_unit)
-            # stats to stderr and the catalog file (kdOutStats)
-            sys.stderr.write(format_stats(run.stats, for_file=False))
-            fp_out.write(format_stats(run.stats, for_file=True))
-            for sp in (DARK, GAS, STAR, MARK):
-                if sp in species:
-                    write_profile_file(f"{base}.{SPECIES_EXT[sp]}", fp_out,
-                                       run_time, sp, catalog.index,
-                                       run.derived.profiles[sp], units)
-            write_sovcirc_rows(fp_out, catalog.index, run.mvir, run.rvir,
-                               run.derived.rmass, run.derived.rmax,
-                               run.derived.vmax, run.derived.vcirc, units)
+        """Catalog files by rank 0, per-particle files by every rank."""
+        if is_p0:
+            with open(f"{base}.sovcirc", "w") as fp_out:
+                write_sovcirc_header(fp_out, run_time, gtp_file, list_file,
+                                     stat_file, np.float32(threshold),
+                                     threshold_user, f_redshift, f_omega,
+                                     f_lambda, b_periodic, f_period,
+                                     f_center, f_min_mass, n_members, b_pot,
+                                     f_mass_unit, f_mpc_unit)
+                # stats to stderr and the catalog file (kdOutStats)
+                sys.stderr.write(format_stats(run.stats, for_file=False))
+                fp_out.write(format_stats(run.stats, for_file=True))
+                for sp in (DARK, GAS, STAR, MARK):
+                    if sp in species:
+                        write_profile_file(f"{base}.{SPECIES_EXT[sp]}",
+                                           fp_out, run_time, sp,
+                                           catalog.index,
+                                           run.derived.profiles[sp], units)
+                write_sovcirc_rows(fp_out, catalog.index, run.mvir,
+                                   run.rvir, run.derived.rmass,
+                                   run.derived.rmax, run.derived.vmax,
+                                   run.derived.vcirc, units)
         if b_grp:
-            write_array_file(f"{base}.sogrp", run.conflicts.igrp)
-        if b_gtp:
+            write_particle_array(f"{base}.sogrp", run, "igrp")
+        if b_gtp and is_p0:
             write_sogtp(f"{base}.sogtp", f_time, catalog.n_in_gtp,
                         catalog.index, run.mvir, run.rvir, catalog.pos,
                         run.solve.vcm, b_standard)
         if b_subsumed:
-            write_array_file(f"{base}.sosub", run.conflicts.n_subsumed)
+            write_particle_array(f"{base}.sosub", run, "n_subsumed")
         if b_ignored:
-            write_array_file(f"{base}.soign", run.conflicts.n_ignored)
+            write_particle_array(f"{base}.soign", run, "n_ignored")
 
     if deltas is not None:
         thresholds = [float(np.float32(d * np.float32(f_omega)))
                       for d in deltas]
-        runs = run_so_multi(particles, catalog, params, thresholds,
-                            mesh=mesh)
+        if transport is not None:
+            from .parallel.driver import run_so_multi_distributed
+
+            runs = run_so_multi_distributed(
+                tipsy_file, catalog, params, thresholds,
+                standard=b_standard, mark_mask=mask, transport=transport)
+        else:
+            runs = run_so_multi(particles, catalog, params, thresholds,
+                                mesh=mesh)
         for d, thr, run in zip(deltas, thresholds, runs):
             dstr = ("%g" % d).replace("+", "")
             write_outputs(f"{out_base}.d{dstr}", run, thr, True)
         solve_seconds = runs[-1].solve_seconds if runs else 0.0
     else:
-        run = run_so(particles, catalog, params, mesh=mesh)
+        if transport is not None:
+            from .parallel.driver import run_so_distributed
+
+            run = run_so_distributed(tipsy_file, catalog, params,
+                                     standard=b_standard, mark_mask=mask,
+                                     transport=transport)
+        else:
+            run = run_so(particles, catalog, params, mesh=mesh)
         write_outputs(out_base, run, f_threshold, b_threshold)
         solve_seconds = run.solve_seconds
 
-    sec = int(solve_seconds)
-    usec = int((solve_seconds - sec) * 1e6)
-    sys.stderr.write("SO CPU Time:")
-    sys.stderr.write("   %d.%06d\n\n" % (sec, usec))
+    if transport is not None:
+        # every rank's writes finish before any rank leaves the group
+        import torch.distributed as dist
+
+        transport.barrier()
+        dist.destroy_process_group()
+    if is_p0:
+        sec = int(solve_seconds)
+        usec = int((solve_seconds - sec) * 1e6)
+        sys.stderr.write("SO CPU Time:")
+        sys.stderr.write("   %d.%06d\n\n" % (sec, usec))
     return 0
 
 

@@ -4,10 +4,11 @@ so_tpu/engine/fused.py).
 The reference re-gathers every solved group twice: kdTagParticles walks
 the j interior particles (kd2.c:823) and kdVcirc re-gathers at 2*Rvir
 (kd2.c:511-514). The interior is a prefix of the distance-sorted 2*Rvir
-ball, so ONE gather at 2*Rvir with (mass, meta, idx) channels yields both:
+ball, so ONE gather at 2*Rvir with (mass, meta, orig) channels yields both:
 the derived quantities (derived_from_sorted) and the member lists (the
-first j sorted rows of each halo). vcm is computed on the host from the
-member rows (members.vcm_from_members).
+first j sorted rows of each halo, as file-order indices: the "orig"
+channel). vcm is computed on the host from the member rows
+(members.vcm_from_members, or an injected vcm_fn under --distributed).
 
 Derived quantities are computed for every solved group; the pipeline
 zeroes the rows of groups slurped during their own tagging (kd2.c:884)
@@ -34,7 +35,7 @@ def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
     fball = 2.0 * rvir
     um = grid.uniform_mass
     chans = ((() if um is not None else ("mass",))
-             + (("meta",) if species else ()) + ("idx",))
+             + (("meta",) if species else ()) + ("orig",))
     sg = slab_gather(grid, level, centers, fball, fball * fball, K, S,
                      channels=chans)
     d2_s = sg.d2
@@ -45,29 +46,36 @@ def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
     else:
         ptype_s = torch.zeros_like(d2_s, dtype=torch.int32)
         mark_s = torch.zeros_like(d2_s, dtype=torch.bool)
-    srow = sg.channels[-1]
+    orig = sg.channels[-1]
     der = derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, sg.n_in, rvir,
                               mvir, fball, n_members, species, grav,
                               uniform_m=um)
     # interior members: the first j sorted rows — a PREFIX of each row, so
     # a boolean-mask compaction keeps halo-major, ascending-distance order
     slot = torch.arange(d2_s.shape[1], device=d2_s.device)[None, :]
-    interior = (slot < j[:, None]) & torch.isfinite(d2_s) & (srow >= 0)
+    interior = (slot < j[:, None]) & torch.isfinite(d2_s) & (orig >= 0)
     counts = interior.sum(dim=1)
-    members = grid.orig_idx[srow[interior].long()]
-    return members, counts, der, sg.overflow
+    return orig[interior], counts, der, sg.overflow
 
 
 def members_and_derived(grid: CellGrid, centers: np.ndarray,
                         rvir: np.ndarray, j: np.ndarray, mvir: np.ndarray,
                         host_mv, n_members: int = 8, species: tuple = (),
-                        grav: float = 1.0):
+                        grav: float = 1.0, vcm_fn=None, member_filter=None):
     """One fused pass over the solved halos: (members, vcm, DerivedResult).
 
     Dispatches follow derived.ball_rounds (capacities from the exact
     footprints of the 2*Rvir balls, x4 on overflow). ``host_mv`` is the
     ``(vel, mass)`` pair of per-particle host arrays in original file
     order.
+
+    ``vcm_fn(rows, counts, mvir_rows) -> (n, 3) f32`` takes the place of
+    members.vcm_from_members over ``host_mv``, which is then not read (a
+    --distributed rank holds its segment only: parallel.driver.dist_vcm_fn
+    merges per-segment partials). ``member_filter(rows)`` maps each halo's
+    full member array to what is kept of it (parallel.driver.
+    seg_member_filter: the rank's segment rows with their ranks), so no
+    rank keeps every member list.
     """
     G = centers.shape[0]
     dev = grid.device
@@ -96,10 +104,12 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
         derived.fill(part, ok, der)
         pieces = np.split(rows64, np.cumsum(counts)[:-1])
         for i in np.nonzero(ok)[0]:
-            out_members[part[i]] = pieces[i]
+            out_members[part[i]] = (pieces[i] if member_filter is None
+                                    else member_filter(pieces[i]))
         # group mean velocity from the member rows (_VcmParticles)
-        vcm[part[ok]] = vcm_from_members(*host_mv, rows64, counts,
-                                         mvir[part])[ok]
+        vcm[part[ok]] = (vcm_from_members(*host_mv, rows64, counts,
+                                          mvir[part]) if vcm_fn is None
+                         else vcm_fn(rows64, counts, mvir[part]))[ok]
         return ovf
 
     ball_rounds(grid, centers, (np.float32(2.0) * rvir).astype(np.float32),

@@ -31,10 +31,17 @@ def member_mv_sums(vel, mass, rows: np.ndarray,
     return sums
 
 
+def vcm_from_sums(sums: np.ndarray, counts: np.ndarray,
+                  mvir: np.ndarray) -> np.ndarray:
+    """Group mean velocity from the (G, 3) f64 member sums: the sums over
+    Mvir in f64, rounded once to f32 (0 for an empty list)."""
+    return (sums / np.maximum(np.asarray(mvir, np.float64)[:, None], 1e-300)
+            ).astype(np.float32) * (np.asarray(counts, np.int64) > 0)[:, None]
+
+
 def vcm_from_members(vel, mass, rows: np.ndarray, counts: np.ndarray,
                      mvir: np.ndarray) -> np.ndarray:
     """Group mean velocity from concatenated member rows (halo-major,
     ascending distance within each halo): the f64 member sums over Mvir."""
-    sums = member_mv_sums(vel, mass, rows, counts)
-    return (sums / np.maximum(np.asarray(mvir, np.float64)[:, None], 1e-300)
-            ).astype(np.float32) * (np.asarray(counts, np.int64) > 0)[:, None]
+    return vcm_from_sums(member_mv_sums(vel, mass, rows, counts), counts,
+                         mvir)

@@ -14,7 +14,9 @@ exact; step 5 is sequential and runs in the port's native C pass.
 run_so_multi solves several thresholds against shared gathers and runs
 steps 4-6 once per threshold. Given a mesh (parallel.make_mesh), both
 shard the grid over its devices (parallel.build_sharded_grid); every
-stage then gathers through the sharded grid, unchanged.
+stage then gathers through the sharded grid, unchanged. A --distributed
+run (parallel/driver.py) drives the same stages on each rank, with the
+hooks of _post_solve for the pieces a particle segment cannot do alone.
 """
 
 from __future__ import annotations
@@ -40,17 +42,6 @@ from .fused import members_and_derived
 from .multi import solve_rvir_multi
 from .recenter import recenter_most_bound
 from .solver import SolveResult, solve_rvir
-
-# options of so_tpu that this package does not run yet -> ROADMAP.md item
-NOT_PORTED = {
-    "--distributed": 4,
-}
-
-
-def not_ported(option: str) -> str:
-    return (f"{option} is not yet in so_tpu_torch "
-            f"(ROADMAP.md section 1, item {NOT_PORTED[option]})")
-
 
 def resolve_device(device) -> torch.device:
     """The run's device. A CUDA request without a usable card raises:
@@ -229,9 +220,19 @@ def _scatter_derived(src, ok_rows, eligible, n, species):
 
 
 def _post_solve(grid, particles, catalog, centers, solve, params,
-                timer, members=None) -> SORun:
+                timer, members=None, vcm_fn=None, n_particles=None,
+                stats_fn=None, conflict_fn=None,
+                member_filter=None) -> SORun:
     """Members, conflicts, derived quantities and stats. ``members`` comes
-    from a checkpoint on resume: only the derived pass then gathers."""
+    from a checkpoint on resume: only the derived pass then gathers.
+
+    The other arguments serve a --distributed rank, which holds only its
+    segment of the particles (parallel.driver): ``vcm_fn`` and
+    ``member_filter`` go to members_and_derived (``particles``' vel and
+    mass are then not read), ``conflict_fn`` takes resolve_conflicts'
+    place with the GLOBAL particle count ``n_particles``, and
+    ``stats_fn(conflicts)`` compute_stats'. The defaults are the
+    single-process run."""
     ok = solve.code == 0
     derived_all = None
     if members is None:
@@ -241,9 +242,10 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
             # kd2.c:511-514 vs 823)
             members_ok, vcm_ok, derived_all = members_and_derived(
                 grid, centers[ok], solve.rvir[ok], solve.j[ok],
-                solve.mvir[ok], host_mv=(particles.vel, particles.mass),
+                solve.mvir[ok], host_mv=(None if vcm_fn is not None else
+                                         (particles.vel, particles.mass)),
                 n_members=params.n_members, species=tuple(params.species),
-                grav=params.grav)
+                grav=params.grav, vcm_fn=vcm_fn, member_filter=member_filter)
             members = [None] * catalog.n
             for slot, h in enumerate(np.nonzero(ok)[0]):
                 members[h] = members_ok[slot]
@@ -252,9 +254,10 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
     with timer.phase("conflict protocol"):
         # ascending input-mass order (kdSortMass, kd2.c:843-861)
         order = indexx(np.asarray(catalog.gtp_mass, np.float32))
-        conflicts = resolve_conflicts(catalog.index, centers, solve.mvir,
-                                      solve.rvir, solve.code, order, members,
-                                      particles.n)
+        conflicts = (conflict_fn or resolve_conflicts)(
+            catalog.index, centers, solve.mvir, solve.rvir, solve.code,
+            order, members,
+            particles.n if n_particles is None else n_particles)
 
     eligible = ok & ~conflicts.slurped_own  # kdSO eligibility (kd2.c:884)
     with timer.phase("derived quantities"):
@@ -271,10 +274,11 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
                                       grav=params.grav)
 
     with timer.phase("stats"):
-        stats = compute_stats(np.asarray(particles.mass), conflicts.igrp,
-                              conflicts.n_subsumed, conflicts.n_ignored,
-                              conflicts.mvir, conflicts.groups_removed,
-                              conflicts.groups_slurped)
+        stats = (stats_fn(conflicts) if stats_fn is not None else
+                 compute_stats(np.asarray(particles.mass), conflicts.igrp,
+                               conflicts.n_subsumed, conflicts.n_ignored,
+                               conflicts.mvir, conflicts.groups_removed,
+                               conflicts.groups_slurped))
 
     return SORun(catalog=catalog, solve=solve, conflicts=conflicts,
                  derived=derived, stats=stats, order=order, members=members)

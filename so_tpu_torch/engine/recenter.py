@@ -6,9 +6,11 @@ position of the minimum-phi particle within radius Rgtp of the input
 center. The pass reads only particle data, so it runs batched over all
 halos before the solve: K1 (K3 on giant tiers) gathers the Rgtp ball
 from a copy of the payload with phi in the mass row, unsorted, and an
-argmin over the slots picks the particle (its source row comes from the
-kernel's idx output). On a sharded grid each shard's payload gets its
-copy and the argmin runs over the shards' merged rows.
+argmin over the slots picks the particle (its position is read at the
+kernel's source row, gather.POSITION). On a sharded grid each shard's
+payload gets its copy, each shard reads its own candidates' positions,
+and the argmin runs over the shards' merged rows (across ranks too,
+under --distributed).
 
 Ties: the reference keeps the first minimum in kd-tree order; torch's
 argmin keeps the first minimum in K1's slot order, which is so_tpu's
@@ -45,14 +47,14 @@ def _with_phi(grid: CellGrid) -> CellGrid:
 def _recenter_stage(grid: CellGrid, level: int, K: int, S: int, centers,
                     radii):
     """(new centers, overflow) for one capacity tier on a _with_phi grid."""
-    d2, ch, idx, overflow = unsorted_gather(
-        grid, level, centers, radii, radii * radii, K, S, chans=("mass",),
-        want_idx=True)
+    d2, ch, _, overflow = unsorted_gather(
+        grid, level, centers, radii, radii * radii, K, S,
+        chans=("mass", "x", "y", "z"))
     ok = torch.isfinite(d2)
     phi = torch.where(ok, ch[:, 0], torch.full_like(d2, torch.inf))
     amin = torch.argmin(phi, dim=1)       # the first minimum in slot order
     rows = torch.arange(centers.shape[0], device=centers.device)
-    best = grid.pos_a()[torch.clamp(idx[rows, amin].long(), min=0)]
+    best = ch[rows, 1:, amin]
     found = ok.any(dim=1)
     return torch.where(found[:, None], best, centers), overflow
 

@@ -168,18 +168,31 @@ def footprint(grid: CellGrid, level: int, centers, radii, S: int):
                        align=grid.chunk)[3]
 
 
+# unsorted_gather's position channels: payload rows 0-2 read at the
+# source rows after the kernel (0 off-ball), on the grid that holds them
+POSITION = ("x", "y", "z")
+
+
 def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
                     K: int, S: int, chans: tuple = (), want_idx: bool = False):
     """(d2, channels, idx, overflow) in the kernels' slot order, no row
     sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
-    names (slab_gather.CHANNEL_ROWS)."""
+    names (slab_gather.CHANNEL_ROWS) or POSITION's, which each shard of a
+    sharded grid resolves from its own rows."""
     if not isinstance(grid, CellGrid):
         return grid.unsorted_gather(level, centers, radii, r2_mask, K, S,
                                     chans, want_idx)
     ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
                          align=grid.chunk)
-    d2, ch, idx = _slotted(grid, ranges, centers, r2_mask, K, chans,
-                           want_idx)
+    kchans = tuple(c for c in chans if c not in POSITION)
+    d2, ch, idx = _slotted(grid, ranges, centers, r2_mask, K, kchans,
+                           want_idx or len(kchans) < len(chans))
+    if len(kchans) < len(chans):
+        kcols = iter(ch.unbind(1))
+        ch = torch.stack([grid.row_values(idx, POSITION.index(c))
+                          if c in POSITION else next(kcols) for c in chans],
+                         dim=1)
+        idx = idx if want_idx else None
     return d2, ch, idx, ranges[3] > K
 
 
@@ -197,8 +210,10 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     (slab_gather.sort_rows). Either way the order is the stable sort's
     over the kernels' slot layout, on the card and on the CPU.
 
-    ``channels`` is drawn from {"mass", "mv", "meta", "idx"}: "mv" gives a
-    (B, K, 3) m*v stack, "idx" the exact int32 source row (-1 off-ball).
+    ``channels`` is drawn from {"mass", "mv", "meta", "idx", "orig"}: "mv"
+    gives a (B, K, 3) m*v stack, "idx" the exact int32 source row (-1
+    off-ball), "orig" the source particle's int64 index in file order (-1
+    off-ball; each shard of a sharded grid resolves it from its own rows).
     """
     if not isinstance(grid, CellGrid):
         return grid.slab_gather(level, centers, radii, r2_mask, K, S,
@@ -209,10 +224,10 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
             kernel_chans.extend(["mvx", "mvy", "mvz"])
         elif ch in ("mass", "meta"):
             kernel_chans.append(ch)
-        elif ch != "idx":
+        elif ch not in ("idx", "orig"):
             raise ValueError(ch)
     kernel_chans = tuple(kernel_chans)
-    want_idx = "idx" in channels
+    want_idx = "idx" in channels or "orig" in channels
     ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
                          align=grid.chunk)
     if K <= min(SORTED_K_MAX, PIECE_K_MIN):    # K3's tiers stay K3's
@@ -229,6 +244,8 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     for c in channels:
         if c == "idx":
             out.append(idx)
+        elif c == "orig":
+            out.append(grid.file_rows(idx))
         elif c == "mv":
             out.append(torch.stack(ch[i:i + 3], dim=-1))
             i += 3

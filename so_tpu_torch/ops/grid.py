@@ -87,6 +87,16 @@ class CellGrid:
     def mark_a(self) -> torch.Tensor:
         return (self.soa8t[7, :self.n].to(torch.int32) >> 4) > 0
 
+    def file_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """The file-order index of sorted rows ``idx`` (-1 stays -1)."""
+        return torch.where(idx >= 0, self.orig_idx[idx.clamp(min=0).long()],
+                           -1)
+
+    def row_values(self, idx: torch.Tensor, row: int) -> torch.Tensor:
+        """Payload row ``row`` at sorted rows ``idx`` (0 where idx is -1)."""
+        return torch.where(idx >= 0, self.soa8t[row][idx.clamp(min=0).long()],
+                           0.0)
+
     def ncell(self, level: int) -> int:
         return 1 << (self.m - level)
 

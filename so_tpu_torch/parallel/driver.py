@@ -1,0 +1,493 @@
+"""The multi-process pipeline behind --distributed (port of
+so_tpu/parallel/driver.py).
+
+The reference is one process with the whole snapshot in memory
+(so.c:192-575, kd2.c:318-421); a 1024^3 snapshot (1e9 particles, ~32 GB
+of f32 pos/vel/mass/phi before the payload's 32 B a particle) cannot be.
+Every rank of a torch.distributed group runs the same program:
+
+  1. it reads only its segment of the snapshot (io.tipsy.read_tipsy_segment
+     over distributed.grid_segment) and builds only its own P_local shards
+     (distributed.build_sharded_grid_segment), with the global
+     uniform-mass verdict taken by collective;
+  2. the engine runs unchanged on that grid: every gather merges over the
+     local shards and then over the ranks (mesh.ShardedGrid), so every
+     rank holds the same solver state and issues the same gathers and
+     collectives; K1, K2 and K3 run on every rank;
+  3. the host phases are sharded: the conflict walk by connected component
+     of the shared-member-row graph (dist_conflict_fn), each rank keeping
+     per-particle outputs for its own segment only (SegmentConflictState);
+     vcm and the stats merge per-segment f64 partials in rank order;
+     member lists keep only the rank's segment rows (seg_member_filter);
+  4. catalog files are written by rank 0, .sogrp/.sosub/.soign by every
+     rank at its own byte offset (write_array_file_segments).
+
+No rank holds an O(N) array beyond its own segment.
+
+Association: vcm and the stats' mass sums add per-rank f64 partials in
+rank order instead of one f64 pass over all particles; the differences are
+at the 1e-16 level, below the f32 catalog columns and the %g of the stats
+(the files are held byte-identical to the one-process CLI's).
+
+so_tpu's dist_stage_fn, dist_fused_stage_fn, dist_classify_fn,
+dist_fused_members_fn, dist_derived_fn and dist_multi_stage_fn inject
+shard_map stages into its engine; the merge at the gather seam makes them
+unnecessary here.
+"""
+
+from __future__ import annotations
+
+import os
+import time as _time
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+
+from .distributed import (TorchTransport, build_sharded_grid_segment,
+                          grid_segment, make_multihost_mesh)
+
+
+@dataclass
+class SegmentConflictState:
+    """ConflictState whose per-particle arrays cover only the rank's
+    segment [seg_start, seg_start + seg_count) of the file; the per-group
+    columns and counters are global (the same on every rank)."""
+    igrp: np.ndarray          # (seg_count,) i32
+    n_subsumed: np.ndarray    # (seg_count,) i32
+    n_ignored: np.ndarray     # (seg_count,) i32
+    seg_start: int
+    seg_count: int
+    n_global: int
+    mvir: np.ndarray          # (G,) f32 post-conflict catalog columns
+    rvir: np.ndarray          # (G,) f32
+    slurped_own: np.ndarray   # (G,) bool
+    groups_removed: int
+    groups_slurped: int
+
+
+class SegRows(NamedTuple):
+    """One halo's member rows inside one rank's segment: ``rows`` (file
+    indices), ``ranks`` (each row's slot in the halo's full distance-sorted
+    list, the kdTagParticles walk order, kd2.c:663-720) and ``n`` (the full
+    list's length, the same on every rank)."""
+    ranks: np.ndarray   # (k,) i64
+    rows: np.ndarray    # (k,) i64
+    n: int
+
+
+def seg_member_filter(start: int, count: int):
+    """members_and_derived's member_filter: keep the rows of a halo's list
+    inside [start, start + count), with their ranks in the list."""
+    def filt(piece: np.ndarray) -> SegRows:
+        piece = np.asarray(piece, np.int64)
+        sel = (piece >= start) & (piece < start + count)
+        return SegRows(ranks=np.nonzero(sel)[0].astype(np.int64),
+                       rows=piece[sel], n=int(piece.size))
+
+    return filt
+
+
+def dist_conflict_fn(start: int, count: int, transport=None):
+    """_post_solve's conflict_fn: the component-sharded walk over SegRows
+    member lists (``members[h]`` is the rank's part of halo h's list).
+
+    1. components: a shared member row lies in one segment, so each rank
+       finds the edges of the "groups sharing a row" graph in its own rows
+       ((row, group) sort, equal neighbours); the edge lists are
+       all-gathered and every rank runs the same union-find, in rank order,
+       so every rank has the same component roots;
+    2. a singleton component cannot conflict: each rank tags its own rows
+       of it, with no exchange;
+    3. multi-group components go round-robin by root to the ranks; their
+       (group, rank in list, row) triples are all-gathered, each rank
+       rebuilds the full lists of its components, walks them
+       (engine.conflicts.conflict_walk_sparse: the serial walk's bits) and
+       the (row, igrp, n_sub, n_ign) results are all-gathered back; each
+       rank keeps its segment's rows. Per-group columns merge by the
+       disjoint ownership masks.
+
+    ``transport`` defaults to distributed.TorchTransport(); tests pass a
+    threaded in-process fake."""
+    from ..engine.conflicts import conflict_walk_sparse, union_find
+
+    if transport is None:
+        transport = TorchTransport()
+
+    def conflict_fn(index, pos, mvir, rvir, code, order, members,
+                    n_particles):
+        nproc, pid = transport.nproc, transport.pid
+        G = index.shape[0]
+        counts = np.array([m.n if m is not None else 0 for m in members],
+                          np.int64)
+        active = (np.asarray(code) == 0) & (counts > 0)
+        act = np.nonzero(active)[0]
+
+        # 1. components from the segments' shared rows
+        if act.size:
+            rows_cat = np.concatenate([members[g].rows for g in act])
+            gid_cat = np.repeat(act, [members[g].rows.size for g in act])
+        else:
+            rows_cat = gid_cat = np.zeros(0, np.int64)
+        o = np.argsort(rows_cat, kind="stable")
+        rows_s, gid_s = rows_cat[o], gid_cat[o]
+        same = rows_s[1:] == rows_s[:-1]
+        edges = np.unique(
+            np.stack([gid_s[:-1][same], gid_s[1:][same]], axis=1), axis=0)
+        comp = np.where(active, union_find(
+            G, transport.allgather_varlen(edges.ravel())), -1)
+
+        roots, root_sizes = np.unique(comp[act], return_counts=True)
+        multi_roots = roots[root_sizes >= 2]
+        mine = multi_roots[multi_roots % nproc == pid]
+
+        igrp = np.zeros(count, np.int32)
+        nsub = np.zeros(count, np.int32)
+        nign = np.zeros(count, np.int32)
+
+        # 2. singleton components: tag the rank's own rows
+        single = set(roots[root_sizes == 1].tolist())
+        for g in act:
+            if comp[g] in single:
+                igrp[members[g].rows - start] = np.int32(index[g])
+
+        # 3. multi-group components: triples out, owners walk, rows back
+        mg = np.nonzero(np.isin(comp, multi_roots) & active)[0]
+        tri = np.zeros((0, 3), np.int64)
+        if mg.size:
+            tri = np.concatenate([np.stack(
+                [np.full(members[g].rows.size, g, np.int64),
+                 members[g].ranks, members[g].rows], axis=1) for g in mg])
+        tri_all = transport.allgather_varlen(tri.ravel())
+
+        owned = mg[np.isin(comp[mg], mine)]
+        base = np.full(G, -1, np.int64)
+        base[owned] = np.cumsum(counts[owned]) - counts[owned]
+        flat = np.full(int(counts[owned].sum()), -1, np.int64)
+        for blk in tri_all:
+            t = np.asarray(blk, np.int64).reshape(-1, 3)
+            t = t[np.isin(comp[t[:, 0]], mine)]
+            flat[base[t[:, 0]] + t[:, 1]] = t[:, 2]
+        if (flat < 0).any():
+            raise RuntimeError("segment member reassembly left holes")
+        members_full: list = [None] * G
+        for g in owned:
+            members_full[g] = flat[base[g]:base[g] + counts[g]]
+
+        sp = conflict_walk_sparse(index, pos, mvir, rvir, code, order,
+                                  members_full, comp=comp,
+                                  comp_sel=lambda r: np.isin(r, mine))
+
+        rows_all = transport.allgather_varlen(sp.rows)
+        vals_all = transport.allgather_varlen(np.stack(
+            [sp.igrp, sp.n_subsumed, sp.n_ignored], axis=1).ravel())
+        for rows_p, vals_p in zip(rows_all, vals_all):
+            v = vals_p.reshape(-1, 3)
+            sel = (rows_p >= start) & (rows_p < start + count)
+            loc = rows_p[sel] - start
+            igrp[loc] = v[sel, 0]
+            nsub[loc] = v[sel, 1]
+            nign[loc] = v[sel, 2]
+
+        own_a, mvir_a, rvir_a, sl_a, cnt_a = transport.process_allgather(
+            (sp.own.astype(np.uint8), sp.mvir, sp.rvir,
+             sp.slurped_own.astype(np.uint8),
+             np.array([sp.groups_removed, sp.groups_slurped], np.int64)))
+        mvir_m = np.asarray(mvir, np.float32).copy()
+        rvir_m = np.asarray(rvir, np.float32).copy()
+        slurped = np.zeros(G, bool)
+        for p in range(nproc):
+            o = own_a[p].astype(bool)
+            mvir_m[o] = mvir_a[p][o]
+            rvir_m[o] = rvir_a[p][o]
+            slurped[o] = sl_a[p][o].astype(bool)
+        return SegmentConflictState(
+            igrp=igrp, n_subsumed=nsub, n_ignored=nign, seg_start=start,
+            seg_count=count, n_global=n_particles, mvir=mvir_m, rvir=rvir_m,
+            slurped_own=slurped, groups_removed=int(cnt_a[:, 0].sum()),
+            groups_slurped=int(cnt_a[:, 1].sum()))
+
+    return conflict_fn
+
+
+def write_array_file_segments(path: str, seg_values: np.ndarray,
+                              n_global: int, transport=None) -> None:
+    """The tipsy-array file written together: every rank passes its
+    segment (file order); rank 0 creates the file with the count header
+    and sizes it, then every rank writes its lines at its byte offset
+    (io.writers.int_array_text_length). Needs a file system that every
+    rank sees."""
+    from ..io.writers import int_array_text_length, write_int_array_segment
+
+    if transport is None:
+        transport = TorchTransport()
+    lens = [int(a[0]) for a in transport.allgather_varlen(
+        np.array([int_array_text_length(seg_values)], np.int64))]
+    header = ("%d\n" % n_global).encode()
+    if transport.pid == 0:
+        with open(path, "wb") as fp:
+            fp.write(header)
+            fp.truncate(len(header) + sum(lens))
+    transport.barrier()
+    write_int_array_segment(path, seg_values,
+                            len(header) + sum(lens[:transport.pid]))
+    transport.barrier()
+
+
+def dist_vcm_fn(vel_seg: np.ndarray, mass_seg: np.ndarray, start: int,
+                transport=None):
+    """members_and_derived's vcm_fn: per-segment member sums
+    (engine.members.member_mv_sums over the rank's rows of each list, in
+    list order) added over ranks in rank order, over Mvir."""
+    from ..engine.members import member_mv_sums, vcm_from_sums
+
+    if transport is None:
+        transport = TorchTransport()
+    count = np.shape(mass_seg)[0]
+
+    def vcm_fn(rows, counts, mvir_rows):
+        counts = np.asarray(counts, np.int64)
+        seg_id = np.repeat(np.arange(counts.size), counts)
+        sel = (rows >= start) & (rows < start + count)
+        partial = member_mv_sums(vel_seg, mass_seg, rows[sel] - start,
+                                 np.bincount(seg_id[sel],
+                                             minlength=counts.size))
+        sums = transport.process_allgather((partial,))[0].sum(axis=0)
+        return vcm_from_sums(sums, counts, mvir_rows)
+
+    return vcm_fn
+
+
+def dist_stats_fn(mass_seg: np.ndarray, start: int, transport=None):
+    """_post_solve's stats_fn: kdOutStats' sums over the rank's segment
+    (native.stats_pass_native), added over ranks in rank order."""
+    from ..native import stats_pass_native
+    from ..stats import RunStats
+
+    if transport is None:
+        transport = TorchTransport()
+    count = np.shape(mass_seg)[0]
+
+    def stats_fn(conflicts):
+        if (conflicts.seg_start, conflicts.seg_count) != (start, count):
+            raise ValueError("conflict state of another segment")
+        nat = stats_pass_native(mass_seg, conflicts.igrp,
+                                conflicts.n_subsumed, conflicts.n_ignored)
+        if nat is None:
+            raise RuntimeError("the native stats pass (so_tpu_torch/native) "
+                               "could not be built or loaded")
+        f, i = nat
+        part = np.array([i[0], i[1], f[0], f[1], i[2], i[3], f[2], f[3],
+                         f[4]], np.float64)
+        tot = transport.process_allgather((part,))[0].sum(axis=0)
+        return RunStats(
+            cum_particles_subsumed=int(tot[0]),
+            particles_subsumed=int(tot[1]),
+            cum_mass_subsumed=float(tot[2]), mass_subsumed=float(tot[3]),
+            cum_particles_ignored=int(tot[4]),
+            particles_ignored=int(tot[5]),
+            cum_mass_ignored=float(tot[6]), mass_ignored=float(tot[7]),
+            groups_removed=conflicts.groups_removed,
+            groups_slurped=conflicts.groups_slurped,
+            particle_mass_sum=float(tot[8]),
+            halo_mass_sum=float(np.maximum(
+                conflicts.mvir.astype(np.float64), 0.0).sum()))
+
+    return stats_fn
+
+
+def recenter_most_bound_distributed(sgrid, centers, rgtp,
+                                    k0_cap: int = 4096):
+    """-pot across ranks: engine.recenter.recenter_most_bound on a rank's
+    grid (built with phi); each shard reads its candidates' positions and
+    the argmin runs over the rows merged over every rank."""
+    from ..engine.recenter import recenter_most_bound
+
+    if sgrid.comm is None:
+        raise ValueError("not a --distributed grid")
+    return recenter_most_bound(sgrid, centers, rgtp, k0_cap=k0_cap)
+
+
+def _uniform_verdict(mass_seg, transport) -> float | None:
+    """The global uniform mass: every rank's segment uniform with the same
+    f32 value (an empty segment is uniform and has no value)."""
+    from ..ops.grid import detect_uniform_mass
+
+    count = np.shape(mass_seg)[0]
+    um = detect_uniform_mass(mass_seg) if count else None
+    loc = np.array([float(count == 0 or um is not None),
+                    um if um is not None else 0.0, float(count > 0)],
+                   np.float64)
+    allm = transport.process_allgather((loc,))[0]
+    vals = allm[allm[:, 2] > 0, 1]
+    if allm[:, 0].all() and vals.size and (vals == vals[0]).all():
+        return float(np.float32(vals[0]))
+    return None
+
+
+def _dist_setup(snapshot_path: str, catalog, params, standard: bool,
+                parts_per_host: int, mark_mask, timer, transport):
+    """The rank's segment read, the global uniform-mass verdict, its grid
+    and the -pot recentring. Returns (pset, sgrid, centers, rgtp, start,
+    count, n_global)."""
+    from ..io.tipsy import read_header, read_tipsy_segment
+
+    mesh = make_multihost_mesh(parts_per_host, params.device)
+    with open(snapshot_path, "rb") as fp:
+        n_global = read_header(fp, standard).nbodies
+    start, count = grid_segment(n_global, parts_per_host, transport.nproc,
+                                transport.pid)
+    with timer.phase("segment read"):
+        pset = read_tipsy_segment(snapshot_path, start, count, standard)
+    if mark_mask is not None:
+        pset.mark = np.asarray(mark_mask, bool)[start:start + count]
+    um = _uniform_verdict(pset.mass, transport)
+    with timer.phase("grid build (segment)"):
+        sgrid = build_sharded_grid_segment(
+            mesh, start, n_global, pset.pos, pset.mass, vel=pset.vel,
+            phi=pset.phi if params.b_pot else None,
+            ptype=pset.ptype(start + np.arange(count, dtype=np.int64)),
+            mark=pset.mark, period=params.period, center=params.center,
+            uniform_mass=um, comm=transport)
+    centers = np.asarray(catalog.pos, np.float32).copy()
+    rgtp = np.asarray(catalog.rgtp, np.float32)
+    if params.b_pot:
+        with timer.phase("recenter (-pot)"):
+            centers = recenter_most_bound_distributed(sgrid, centers, rgtp)
+            catalog.pos = centers
+    return pset, sgrid, centers, rgtp, start, count, n_global
+
+
+def _hooks(pset, start, count, n_global, transport) -> dict:
+    """_post_solve's arguments for a rank that holds one segment."""
+    return dict(vcm_fn=dist_vcm_fn(pset.vel, pset.mass, start, transport),
+                n_particles=n_global,
+                stats_fn=dist_stats_fn(pset.mass, start, transport),
+                conflict_fn=dist_conflict_fn(start, count, transport),
+                member_filter=seg_member_filter(start, count))
+
+
+def _rank_run(params, transport):
+    """(device, PhaseTimer, profile context) of a rank's run; each rank
+    writes its own trace file."""
+    from ..profiling import PhaseTimer, profile_trace, trace_file
+    from .distributed import rank_device
+
+    dev = rank_device(params.device)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(dev)     # NCCL's and the barriers' card
+    return dev, PhaseTimer(device=dev), profile_trace(
+        params.profile_dir, dev, trace_file(transport.pid, transport.nproc))
+
+
+def run_so_distributed(snapshot_path: str, catalog, params,
+                       standard: bool = False, parts_per_host: int = 1,
+                       mark_mask=None, transport=None):
+    """run_so for one rank of a --distributed run: call it on every rank
+    after distributed.init_distributed, with the same arguments.
+    ``params.device`` is the rank's (distributed.rank_device). Returns an
+    SORun whose catalog-sized outputs are the same on every rank and whose
+    conflicts (a SegmentConflictState) and members (SegRows) cover the
+    rank's segment.
+
+    With ``params.checkpoint`` each rank saves its own post-members state
+    to ``{checkpoint}.rank{r}-of-{W}.npz`` (checkpoint.save_solve_segment)
+    and a rerun resumes from those shards, all or none: a partial set
+    raises on every rank."""
+    from .. import checkpoint
+    from ..engine.pipeline import _post_solve
+    from ..engine.solver import solve_rvir
+
+    transport = transport or TorchTransport()
+    pid, nproc = transport.pid, transport.nproc
+    _, timer, trace = _rank_run(params, transport)
+    with trace:
+        pset, sgrid, centers, rgtp, start, count, n_global = _dist_setup(
+            snapshot_path, catalog, params, standard, parts_per_host,
+            mark_mask, timer, transport)
+        t0 = _time.perf_counter()
+        ck = params.checkpoint
+        ck_members = ck_path = digest = None
+        resume = False
+        if ck is not None:
+            digest = checkpoint.input_digest(
+                pset, centers, rgtp, params.threshold, params.n_members,
+                params.period, params.center)
+            digest += f":seg{start}+{count}/{n_global}@p{pid}/{nproc}"
+            ck_path = f"{ck}.rank{pid}-of-{nproc}.npz"
+            have = transport.process_allgather(
+                (np.array([float(os.path.exists(ck_path))]),))[0][:, 0]
+            if have.any() and not have.all():
+                raise RuntimeError(
+                    f"partial distributed checkpoint: shards exist on "
+                    f"{int(have.sum())}/{have.size} ranks; delete "
+                    f"{ck}.rank*.npz and rerun")
+            resume = bool(have.all())
+        if resume:
+            with timer.phase("checkpoint resume (segment)"):
+                solve, ck_members, ck_centers = \
+                    checkpoint.load_solve_segment(ck_path, digest)
+                centers = np.asarray(ck_centers, np.float32)
+                catalog.pos = centers
+        else:
+            with timer.phase("R_Delta solve"):
+                solve = solve_rvir(sgrid, centers, rgtp, params.threshold,
+                                   n_members=params.n_members,
+                                   survey=params.survey)
+        run = _post_solve(sgrid, pset, catalog, centers, solve, params,
+                          timer, members=ck_members,
+                          **_hooks(pset, start, count, n_global, transport))
+        if ck is not None and ck_members is None:
+            with timer.phase("checkpoint save (segment)"):
+                checkpoint.save_solve_segment(ck_path, run.solve,
+                                              run.members, centers,
+                                              digest=digest)
+        run.solve_seconds = _time.perf_counter() - t0
+        run.phases = dict(timer.phases)
+    if params.verbose and pid == 0:
+        timer.report()
+    return run
+
+
+def run_so_multi_distributed(snapshot_path: str, catalog, params,
+                             thresholds, standard: bool = False,
+                             parts_per_host: int = 1, mark_mask=None,
+                             transport=None):
+    """run_so_multi for one rank of a --distributed run (--deltas): one
+    segment grid, the shared-gather multi solve, then the post-solve per
+    threshold with the segment hooks; each SORun equals a
+    run_so_distributed at its threshold."""
+    from ..engine.multi import solve_rvir_multi
+    from ..engine.pipeline import _post_solve
+    from ..engine.solver import SolveResult
+
+    transport = transport or TorchTransport()
+    _, timer, trace = _rank_run(params, transport)
+    runs: list = []
+    with trace:
+        pset, sgrid, centers, rgtp, start, count, n_global = _dist_setup(
+            snapshot_path, catalog, params, standard, parts_per_host,
+            mark_mask, timer, transport)
+        t0 = _time.perf_counter()
+        with timer.phase("R_Delta solve (multi)"):
+            multi = solve_rvir_multi(sgrid, centers, rgtp, thresholds,
+                                     n_members=params.n_members,
+                                     survey=params.survey)
+        for t in range(len(thresholds)):
+            solve_t = SolveResult(
+                code=multi.code[t].copy(), mvir=multi.mvir[t].copy(),
+                rvir=multi.rvir[t].copy(), j=multi.j[t].copy(),
+                d2cut=multi.d2cut[t].copy(),
+                vcm=np.zeros((catalog.n, 3), np.float32))
+            run = _post_solve(sgrid, pset, catalog, centers, solve_t, params,
+                              timer, **_hooks(pset, start, count, n_global,
+                                              transport))
+            run.solve_seconds = _time.perf_counter() - t0
+            runs.append(run)
+        for run in runs:
+            run.phases = dict(timer.phases)
+    if params.verbose and transport.pid == 0:
+        timer.report()
+    return runs

@@ -24,6 +24,17 @@ runs unchanged on the merged rows: the serial-f32 scan (K2), the
 verdicts, the derived quantities, the member rows. The halo axis thus
 splits the gathers and the merges; the scans run on the first device.
 
+Under --distributed (parallel/distributed.py, parallel/driver.py) each
+rank holds only its own P_local shards, global shards rank * P_local + p
+(``shard0``), and a transport (``comm``). A slice's rows, merged over the
+local shards, are then all-gathered over the ranks in rank order and
+merged again by the same function, so every rank holds the same merged
+rows, ties in (rank, shard, slot) order: global shard order, that of a
+1 x (W * P_local) mesh in one process. The gathers' two reads of
+per-particle arrays, a source particle's file index (slab_gather's "orig")
+and position (unsorted_gather's gather.POSITION), are answered by each
+shard before the merge.
+
 Exactness: the merge of disjoint shard subsets is the single-device row
 up to the order within equal d2, which is free (docs/PARITY.md #3; here
 (shard, slot) order). Without equal d2 in a ball every result equals the
@@ -31,8 +42,11 @@ single-device run's bit for bit.
 
 The engine's level and capacity logic reads the sharded grid as a grid of
 one shard: ``n`` is the rows a shard (solver._pick_level's occupancy,
-solver._k_limit's ceiling), a ball's footprint is its largest shard's, and
-a merged row is ``parts`` * K slots wide (the dispatch slot budgets).
+solver._k_limit's ceiling), a ball's footprint is its largest shard's
+(over every rank's), and a merged row is ``parts`` * K slots wide (the
+dispatch slot budgets; ``parts`` counts every rank's shards). Every value
+the engine decides on is thus the same on every rank, so every rank
+issues the same gathers and collectives.
 """
 
 from __future__ import annotations
@@ -103,22 +117,29 @@ class ShardedGrid:
 
     ``cells[h][p]`` is shard p's CellGrid on ``mesh.devices[h][p]``; a
     shard is built once per distinct device, so cells that share a device
-    share the object. Every shard holds ``n_local`` rows (the last one
+    share the object. Every shard holds ``n_local`` rows (the last ones
     padded with zero-mass rows that no cell reaches) and its ``orig_idx``
     maps them to original file indices (-1 on padding). Row r of shard p
-    is row p * n_local + r of the sharded grid, the row space of the
-    merged gathers' idx and of ``orig_idx`` and ``pos_a()``.
+    is row (shard0 + p) * n_local + r of the sharded grid, the row space
+    of the merged gathers' idx.
+
+    ``comm`` (a distributed.TorchTransport, or a test's fake) makes the
+    grid one rank's part of a grid over ``comm.nproc`` ranks, whose
+    shards start at global shard ``shard0``; None is a one-process grid.
     """
     mesh: Mesh
     cells: tuple              # H tuples of P CellGrids
     n_local: int
-    orig_idx: torch.Tensor    # (P * n_local,) i64 on mesh.device
     uniform_mass: float | None
+    comm: object = None
+    shard0: int = 0
 
     # the CellGrid surface that the engine's level and capacity logic reads
     @property
     def parts(self) -> int:
-        return self.mesh.shape["part"]
+        """Shards over every rank: a merged row is parts * K slots."""
+        return self.mesh.shape["part"] * (1 if self.comm is None
+                                          else self.comm.nproc)
 
     @property
     def n(self) -> int:
@@ -146,11 +167,6 @@ class ShardedGrid:
     def ncell(self, level: int) -> int:
         return self.cells[0][0].ncell(level)
 
-    def pos_a(self) -> torch.Tensor:
-        """(P * n_local, 3) positions of every shard's rows, on the first
-        device."""
-        return torch.cat([g.pos_a().to(self.device) for g in self.cells[0]])
-
     def map_shards(self, fn) -> "ShardedGrid":
         """The sharded grid with ``fn`` applied to each placed shard once."""
         done = {}
@@ -167,9 +183,11 @@ class ShardedGrid:
         """For each halo slice h and shard p: ``shard_fn(cell, offset, *the
         slice's halo tensors on the cell's device)`` returns a list of
         tensors (or None), moved to mesh[h][0]; ``merge`` of the P lists
-        (one shard's list is its own merge) gives the slice's list, moved
-        to the first device. Returns the slices' lists concatenated over
-        halos."""
+        (one shard's list is its own merge) gives the slice's list. Over
+        ranks, every rank's list is all-gathered and merged again, in rank
+        order. The slice's list goes to the first device. Returns the
+        slices' lists concatenated over halos. B is the same on every
+        rank, so every rank skips the same empty slices."""
         B = halo[0].shape[0]
         H = len(self.cells)
         cuts = [h * B // H for h in range(H + 1)]
@@ -181,10 +199,12 @@ class ShardedGrid:
             home = self.mesh.devices[h][0]
             rows = []
             for p, g in enumerate(self.cells[h]):
-                res = shard_fn(g, p * self.n_local,
+                res = shard_fn(g, (self.shard0 + p) * self.n_local,
                                *(x[lo:hi].to(g.device) for x in halo))
                 rows.append([None if t is None else t.to(home) for t in res])
             merged = rows[0] if len(rows) == 1 else merge(rows)
+            if self.comm is not None and self.comm.nproc > 1:
+                merged = merge(self.comm.allgather_tensors(merged))
             outs.append([None if t is None else t.to(self.device)
                          for t in merged])
         return [None if parts[0] is None else torch.cat(parts)
@@ -254,29 +274,40 @@ def build_sharded_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     its mesh column. m = min(choose_m(n // P), 9) and chunk =
     choose_chunk(n // P, m), as so_tpu picks them; uniform_mass is detected
     on the real rows."""
+    n = np.shape(pos)[0]
+    return build_shards(mesh, pos, mass, vel, phi, ptype, mark, period,
+                        center, m, n_global=n, nproc=1, start=0,
+                        uniform_mass=detect_uniform_mass(mass), comm=None)
+
+
+def build_shards(mesh: Mesh, pos, mass, vel, phi, ptype, mark, period,
+                 center, m, *, n_global: int, nproc: int, start: int,
+                 uniform_mass, comm) -> ShardedGrid:
+    """The shards of rows [start, start + len(pos)) of an n_global-particle
+    file split over nproc * P shards (P = mesh.shape["part"] a process):
+    build_sharded_grid's split, m and chunk at that shard count."""
     pos = np.asarray(pos, np.float32)
-    n = pos.shape[0]
-    mass = np.asarray(mass, np.float32)
+    count = pos.shape[0]
     P = mesh.shape["part"]
+    nsh = nproc * P
     if m is None:
-        m = min(choose_m(max(n // P, 1)), 9)
-    chunk = choose_chunk(max(n // P, 1), m)
-    nl = -(-n // P)
+        m = min(choose_m(max(n_global // nsh, 1)), 9)
+    chunk = choose_chunk(max(n_global // nsh, 1), m)
+    nl = -(-n_global // nsh)
 
     def split(a, fill=0):
         if a is None:
             return [None] * P
         a = np.asarray(a)
         out = np.full((P * nl,) + a.shape[1:], fill, a.dtype)
-        out[:n] = a
+        out[:count] = a
         return out.reshape((P, nl) + a.shape[1:])
 
     fields = dict(vel=split(vel), phi=split(phi), ptype=split(ptype),
                   mark=split(mark, False))
-    pos_s, mass_s = split(pos), split(mass)
-    valid = split(np.ones(n, bool), False)
-    gidx = split(np.arange(n, dtype=np.int64), -1)
-    um = detect_uniform_mass(mass)
+    pos_s, mass_s = split(pos), split(np.asarray(mass, np.float32))
+    valid = split(np.ones(count, bool), False)
+    gidx = split(start + np.arange(count, dtype=np.int64), -1)
     built = {}
 
     def shard(p, dev):
@@ -285,14 +316,14 @@ def build_sharded_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                            m=m, chunk=chunk, valid=valid[p], device=dev,
                            **{k: v[p] for k, v in fields.items()})
             built[(p, dev)] = dataclasses.replace(
-                g, uniform_mass=um,
+                g, uniform_mass=uniform_mass,
                 orig_idx=torch.as_tensor(gidx[p], device=dev)[g.orig_idx])
         return built[(p, dev)]
 
     cells = tuple(tuple(shard(p, dev) for p, dev in enumerate(row))
                   for row in mesh.devices)
-    orig = torch.cat([g.orig_idx.to(mesh.device) for g in cells[0]])
-    return ShardedGrid(mesh, cells, nl, orig, um)
+    return ShardedGrid(mesh, cells, nl, uniform_mass, comm,
+                       0 if comm is None else comm.pid * P)
 
 
 def _check(mesh: Mesh, sgrid: ShardedGrid) -> None:

@@ -41,7 +41,8 @@ class PhaseTimer:
             if name not in self._order:
                 self._order.append(name)
 
-    def report(self, out=sys.stderr, items: dict | None = None) -> None:
+    def report(self, out=None, items: dict | None = None) -> None:
+        out = sys.stderr if out is None else out   # the stderr of the call
         total = sum(self.phases.values())
         out.write("so_tpu_torch phase timings:\n")
         for name in self._order:
@@ -56,11 +57,18 @@ class PhaseTimer:
 TRACE_FILE = "so_tpu_torch_trace.json"
 
 
+def trace_file(rank: int, nproc: int) -> str:
+    """The trace file of one rank of a --distributed run."""
+    return f"so_tpu_torch_trace.rank{rank}-of-{nproc}.json"
+
+
 @contextlib.contextmanager
-def profile_trace(logdir: str | None, device: torch.device | None = None):
+def profile_trace(logdir: str | None, device: torch.device | None = None,
+                  name: str = TRACE_FILE):
     """A torch.profiler trace of the enclosed run (host ops, plus the
-    card's kernels on a CUDA device), written to ``logdir`` as a Chrome
-    trace (chrome://tracing, Perfetto). No-op when logdir is None."""
+    card's kernels on a CUDA device), written to ``logdir``/``name`` as a
+    Chrome trace (chrome://tracing, Perfetto). No-op when logdir is
+    None."""
     if not logdir:
         yield
         return
@@ -72,4 +80,4 @@ def profile_trace(logdir: str | None, device: torch.device | None = None):
     with profile(activities=acts) as prof:
         yield
     os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+    prof.export_chrome_trace(os.path.join(logdir, name))

@@ -586,6 +586,67 @@ def test_mesh_across_cards_matches_run_so(dev):
     assert g.catalog.pos.tobytes() == s.catalog.pos.tobytes()
 
 
+def test_distributed_across_cards_matches_run_so(dev, tmp_path):
+    """--distributed over W ranks, one card a rank (W = 4 with four or
+    more cards, else 2), NCCL for the card's tensors and gloo for host
+    arrays (the CLI's default backend on a card), each rank reading its
+    snapshot segment and running K1, K2 (and K3 where a tier needs it):
+    every output file equals the one-process CLI's on cuda:0, the card's
+    run_so, but for the run time. Skips with fewer than two cards."""
+    import socket
+    import subprocess
+
+    from fixtures import write_gtp, write_snapshot
+    from so_tpu_torch.cli import main
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    W = 4 if n >= 4 else 2
+    ps, cat = _pipeline_box()
+    d = str(tmp_path)
+    h = ps.header
+    write_snapshot(f"{d}/snap.bin", dict(pos=ps.pos, vel=ps.vel,
+                                         mass=ps.mass, phi=ps.phi),
+                   split=(h.nsph, h.ndark, h.nstar))
+    c = cat()
+    write_gtp(f"{d}/cat.gtp", c.pos, c.rgtp, c.gtp_mass)
+    args = ["-i", f"{d}/cat.gtp", "--tipsy", f"{d}/snap.bin", "-grp",
+            "-gtp", "-subsumed", "-ignored", "-all", "-pot"]
+    # the one-process run builds the kernels before the ranks start
+    assert main(args + ["-o", f"{d}/single", "--device", "cuda:0"]) == 0
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("XLA_", "JAX_"))}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "so_tpu_torch", *args, "-o", f"{d}/dist",
+         "--distributed", "--device", "cuda"], cwd=os.path.dirname(HERE),
+        env=dict(env, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                 WORLD_SIZE=str(W), RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(W)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
+        assert f"rank {r} of {W} on cuda:{r}, backend cpu:gloo,cuda:nccl" \
+            in out
+    for ext in ("sovcirc", "sogrp", "sosub", "soign", "sogtp", "sodark",
+                "sogas", "sostar"):
+        got, want = ([ln for ln in open(f"{d}/{b}.{ext}", "rb")
+                      if not (ln.startswith(b"# Run on")
+                              or b"written to" in ln)]
+                     for b in ("dist", "single"))
+        assert got and got == want, ext
+
+
 def test_cuda_sqrt_and_div_are_correctly_rounded(dev):
     """The port leaves +, -, *, / and sqrt on the card to torch: they must
     round like numpy (IEEE), as the CPU path does (ops/ieee.py)."""

@@ -145,31 +145,46 @@ def test_run_so_matches_so_tpu(uniform, monkeypatch):
     assert vars(got.stats) == vars(want.stats)   # the two packages' RunStats
 
 
-@pytest.mark.parametrize("option", [["--distributed"],
-                                    ["--mesh", "2x1", "--distributed"]])
-def test_unported_options_raise(option, tmp_path, capsys):
-    """--distributed exits 1 naming its ROADMAP.md item, with --mesh
-    too (so_tpu refuses that pair as well)."""
+@pytest.mark.parametrize("option,message", [
+    (["--distributed"],
+     "--distributed: no coordinator configured (set MASTER_ADDR, "
+     "MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK, or start the ranks "
+     "with torchrun)"),
+    (["--mesh", "2x1", "--distributed"],
+     "--distributed cannot be combined with --mesh")])
+def test_unported_options_raise(option, message, tmp_path, capsys,
+                                monkeypatch):
+    """--distributed without a coordinator exits 1 naming torchrun's
+    variables, and with --mesh exits 1 with so_tpu's message; neither
+    writes a file."""
     from so_tpu_torch.cli import main
 
+    for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(v, raising=False)
     d = str(tmp_path)
     args = generate_inputs("basic", d)
     with pytest.raises(SystemExit) as e:
         main(["-i", d + "/cat.gtp", "-o", d + "/got", "--tipsy",
               d + "/snap.bin", "--device", "cpu"] + args + option)
     assert e.value.code == 1
-    err = capsys.readouterr().err.strip().splitlines()[-1]
-    assert err == ("--distributed is not yet in so_tpu_torch (ROADMAP.md "
-                   "section 1, item 4)")
+    assert capsys.readouterr().err.strip().splitlines()[-1] == message
     assert not os.path.exists(d + "/got.sovcirc")
 
 
 def test_port_never_imports_jax(tmp_path):
     """Full CPU runs through the port's CLI, plain, with -pot --deltas
-    --survey, with --checkpoint and with --mesh 2x2 (so_tpu_torch.parallel),
-    leave jax, so_tpu (any module) and bench unimported; the native conflict pass is the port's own library, built
-    under so_tpu_torch/_build/ (so nothing is built into so_tpu/)."""
+    --survey, with --checkpoint, with --mesh 2x2 (so_tpu_torch.parallel)
+    and as the one rank of a --distributed gloo group (torchrun's
+    variables set; so_tpu_torch.parallel.driver), leave jax, so_tpu (any
+    module) and bench unimported; the native conflict pass is the port's
+    own library, built under so_tpu_torch/_build/ (so nothing is built
+    into so_tpu/)."""
+    import socket
+
     args = generate_inputs("errors", str(tmp_path))   # fixtures use so_tpu.io
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
     code = f"""
 import os, sys
 import so_tpu_torch.cli
@@ -185,6 +200,11 @@ assert so_tpu_torch.cli.main(base + ["-o", d + "/ck", "--checkpoint",
 assert so_tpu_torch.cli.main(base + ["-o", d + "/mesh", "--mesh", "2x2"]
                              + args) == 0
 assert "so_tpu_torch.parallel.mesh" in sys.modules
+os.environ.update(MASTER_ADDR="localhost", MASTER_PORT="{port}",
+                  WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+assert so_tpu_torch.cli.main(base + ["-o", d + "/dist", "--distributed"]
+                             + args) == 0
+assert "so_tpu_torch.parallel.driver" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "so_tpu", "bench"))
 assert not bad, bad
@@ -204,3 +224,5 @@ print("JAX_FREE")
     assert os.path.exists(tmp_path / "multi.d500.sogrp")
     assert os.path.exists(tmp_path / "state.npz")
     assert os.path.exists(tmp_path / "mesh.sogrp")
+    assert (tmp_path / "dist.sogrp").read_bytes() == \
+        (tmp_path / "got.sogrp").read_bytes()

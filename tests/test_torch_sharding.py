@@ -156,15 +156,15 @@ def test_sharded_grid_covers_every_particle(data, shape):
     mesh, sg = sharded(data, shape)
     P = shape[1]
     nl = -(-n // P)
-    assert sg.n == nl and sg.parts == P and sg.orig_idx.shape == (P * nl,)
-    orig = sg.orig_idx.numpy()
+    orig = torch.cat([g.orig_idx for g in sg.cells[0]]).numpy()
+    assert sg.n == nl and sg.parts == P and orig.shape == (P * nl,)
     real = orig >= 0
     np.testing.assert_array_equal(np.sort(orig[real]), np.arange(n))
     assert (~real).sum() == P * nl - n
     mass = torch.cat([g.mass_a() for g in sg.cells[0]]).numpy()
     assert (mass[~real] == 0).all()
     np.testing.assert_array_equal(mass[real], d["mass"][orig[real]])
-    pos = sg.pos_a().numpy()
+    pos = torch.cat([g.pos_a() for g in sg.cells[0]]).numpy()
     np.testing.assert_array_equal(pos[real], d["pos"][orig[real]])
     # one build per distinct device: every row of the mesh shares shard p
     for row in sg.cells:
@@ -394,7 +394,7 @@ def test_merged_width_and_slot_budget(data, single, monkeypatch):
     assert torch.equal(foot, shard_feet.amax(0))
     # the merged row's source rows map to the particles it holds
     rows = g.channels[1][g.channels[1] >= 0].long()
-    assert (sg.orig_idx[rows] >= 0).all()
+    assert (torch.cat([g.orig_idx for g in sg.cells[0]])[rows] >= 0).all()
 
     budget = 1 << 14         # 4 halos of 4 * 1024 merged slots, not 16
     monkeypatch.setattr(multi, "SOLVE_SLOT_BUDGET", budget)
