@@ -107,9 +107,29 @@ script exits nonzero:
      2^18 files of phase 10: --deltas 200,340,667 and -pot against phase
      10's files, and -pot --checkpoint twice (the second resumes from the
      two rank shards) with the same bytes.
+ 14. whole box: the giant box with uniform masses, solve_rvir with
+     solver.WBOX_K_MIN forced to 2^15 (the whole-box stage takes every tier
+     above it), at its default and off: codes, Mvir, Rvir, j and d2cut
+     identical; each run's solve seconds, whole-box dispatches and kernel
+     launches; one whole-box stage (the first _wbox_chunk halos at their
+     last rungs) and its d2 pass timed by CUDA events beside the bytes
+     bound; the phase's peak device memory.
+ 15. 512^3: so_tpu's largest catalog (experiments/scale512.py),
+     make_box(rng(12345), 512**3, 65536), uniform masses: run_so at Delta
+     178 (phase seconds, solves/s, e2e, launches, peak device memory and
+     host peak RSS); the solve again on a prebuilt grid with the other
+     WBOX_K_MIN setting, identical on every halo; the 4 largest solved and
+     4 random halos against tests/reference_oracle.py (rel 2e-5);
+     run_so_multi at 178/200/500, whose 178 run equals run_so's in every
+     field and member list.
+ 16. survey box: bench.py's make_box(rng(12345), 2**25, 1_000_000) (46.1M
+     particles): solve_rvir with survey None, True and False (the gate's
+     verdict, n_survey, seconds, peak device memory; identical results),
+     then run_so end to end with its phase seconds and peak device memory.
 
 Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
-and each giant run zero every kernel's launch counter
+each giant run and each run or solve of 14-16 zero every kernel's launch
+counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them (9's card-against-CPU check runs after its count is read), and
 log K2's launches per (B, K). The line before
@@ -795,12 +815,12 @@ def read_k2_shapes(tag):
         K2_SHAPES[key] = K2_SHAPES.get(key, 0) + n
 
 
-def counted(tag, fn, *a, need=("K1", "K1s", "K2")):
+def counted(tag, fn, *a, need=("K1", "K1s", "K2"), **kw):
     """Run one path with every kernel's launch counter zeroed just before;
     fail unless the path's kernels (``need``) grew; add the counts to
     LAUNCHES."""
     zero_counts()
-    out = fn(*a)
+    out = fn(*a, **kw)
     counts = read_counts()
     log(f"[{tag}] launches: {counts}")
     read_k2_shapes(tag)
@@ -1377,6 +1397,290 @@ def phase_giant_vs_cpu():
         gather.PIECE_K_MIN = kmin
 
 
+def route_name(wk):
+    return "off" if wk is None else f"2^{int(wk).bit_length() - 1}"
+
+
+def seconds(fn, *a, **kw):
+    """(fn's result, its wall seconds, the card synced before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def route_solve(tag, grid, centers, rgtp, wk, **kw):
+    """solve_rvir on ``grid`` with solver.WBOX_K_MIN at ``wk``, counted():
+    (result, seconds, counts with the whole-box dispatches under
+    "wbox")."""
+    from so_tpu_torch.engine import solver
+
+    wk0, solver.WBOX_K_MIN = solver.WBOX_K_MIN, wk
+    n0 = solver.wbox_dispatches
+    try:
+        r, sec = counted(tag, seconds, solver.solve_rvir, grid, centers,
+                         rgtp, THR, **kw, need=("K1", "K1s"))
+    finally:
+        solver.WBOX_K_MIN = wk0
+    return r, sec, dict(read_counts(), wbox=solver.wbox_dispatches - n0)
+
+
+SOLVE_FIELDS = ("code", "mvir", "rvir", "j", "d2cut")
+
+
+def same_solve(tag, a, b, fields=SOLVE_FIELDS):
+    for f in fields:
+        if getattr(a, f).tobytes() != getattr(b, f).tobytes():
+            raise AssertionError(f"{tag}: {f} differs")
+
+
+def phase_wbox(giant):
+    """The whole-box route on the giant box with uniform masses: the solve
+    with solver.WBOX_K_MIN forced to 2^15, at its default and off, results
+    bit-identical; then one whole-box stage (a dispatch of the first halos
+    at their last ladder rungs) and its d2 pass timed by CUDA events
+    beside the bytes bound (x, y, z of every particle read once)."""
+    import torch
+
+    from so_tpu_torch.engine import solver
+    from so_tpu_torch.ops.grid import build_grid
+
+    centers, rgtp = giant["centers"], giant["rgtp"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid = build_grid(giant["pos"], dict(giant["masses"])["uniform"],
+                      device="cuda")
+    ref = None
+    for name, wk in (("forced", 1 << 15), ("default", solver.WBOX_K_MIN),
+                     ("off", None)):
+        tag = f"whole box {name} {route_name(wk)}"
+        r, sec, counts = route_solve(tag, grid, centers, rgtp, wk)
+        if name == "forced" and counts["wbox"] <= 0:
+            raise AssertionError(f"{tag}: no whole-box dispatch")
+        if ref is None:
+            ref = r
+        same_solve(tag, r, ref)
+        log(f"[{tag}] particles={grid.n} halos={centers.shape[0]} solve "
+            f"{sec:.4f} s, whole-box dispatches {counts['wbox']}, launches "
+            f"K1 {counts['K1']} K1s {counts['K1s']} K3 {counts['K3']}; "
+            f"largest K {int(r.kcap.max())}; code, Mvir, Rvir, j, d2cut "
+            "identical to the forced run's")
+    bw = solver._wbox_chunk(grid.n)
+    time_wbox_stage("whole box stage", grid, centers[:bw], rgtp[:bw])
+    log(f"[whole box] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del grid
+    torch.cuda.empty_cache()
+
+
+def time_wbox_stage(tag, grid, centers, rgtp):
+    """One whole-box stage (these halos at their last ladder rungs) and its
+    d2 pass, ms by CUDA events, beside the bytes bound: x, y, z of every
+    particle read once."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine import solver
+
+    B = centers.shape[0]
+    kmax, _ = solver.rvir_ladder(rgtp, grid.period_np())
+    c = torch.as_tensor(centers, device="cuda")
+    rad = torch.as_tensor(solver.ladder_radius(rgtp, kmax), device="cuda")
+    thr = np.float32([THR])
+    ms = cuda_ms(lambda: solver._whole_box_stage(grid, c, rad, thr, 8), 3)
+    d2_ms = cuda_ms(lambda: solver.whole_box_d2(grid, c), 3)
+    n_in = int((solver.whole_box_d2(grid, c) <= (rad * rad)[:, None]).sum())
+    b_ms, by = bound(12 * grid.n + 16 * B, 0)
+    log(f"[{tag}] B={B} N={grid.n} ({n_in} in-ball values sorted): "
+        f"{ms:.4f} ms by events, of which the d2 pass {d2_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({by}: x, y, z of every particle once)")
+
+
+def host_peak_gib():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def log_run(tag, out, e2e, n_halos, counts):
+    import torch
+
+    ph = out.phases
+    solve = ph.get("R_Delta solve", ph.get("R_Delta solve (multi)"))
+    log(f"[{tag}] halos={n_halos} ok/-1/-2/-3="
+        f"{check_run(tag, out, n_halos)}; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in ph.items())
+        + f"; {n_halos / solve:.0f} solves/s; e2e {e2e:.3f} s; launches "
+        f"K1 {counts['K1']} K1s {counts['K1s']} K3 {counts['K3']}; largest "
+        f"solve K {int(out.solve.kcap.max()) if out.solve.kcap is not None else 0}"
+        f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, host peak "
+        f"RSS {host_peak_gib():.2f} GiB")
+
+
+def counted_run(tag, fn, *a, **kw):
+    """fn(*a, **kw) counted(), with the device's peak memory reset first:
+    (result, seconds, counts)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, sec = counted(tag, seconds, fn, *a, **kw, need=("K1", "K1s"))
+    return out, sec, read_counts()
+
+
+def oracle_check(tag, ps, out, centers, rgtp, halos):
+    """The halos' code, Mvir and Rvir against tests/reference_oracle.py's
+    brute-force solve (rel 2e-5), four halos at a time in threads (numpy
+    lets go of the GIL in its array loops and sorts)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from reference_oracle import oracle_rvir
+
+    def oracle(h):
+        return oracle_rvir(ps.pos, ps.mass, centers[h], rgtp[h],
+                           (1.0, 1.0, 1.0), THR, 8)
+
+    with ThreadPoolExecutor(4) as pool:
+        wants = list(pool.map(oracle, halos))
+    for h, want in zip(halos, wants):
+        got = [out.solve.code[h], out.solve.mvir[h], out.solve.rvir[h]]
+        if got[0] != want["code"] or any(
+                abs(g - want[f]) > 2e-5 * abs(want[f])
+                for g, f in zip(got[1:], ("mvir", "rvir"))):
+            raise AssertionError(f"{tag}: halo {h} {got} disagrees with the "
+                                 f"oracle {want}")
+
+
+def phase_512():
+    """so_tpu's 512^3 catalog (experiments/scale512.py): make_box(rng(12345),
+    512**3, 65536), uniform masses, Delta 178. run_so once on "cuda"; the
+    solve again on a prebuilt grid with the other WBOX_K_MIN setting (off
+    if the default routes, 2^15 if not), bit-identical on every halo; 4
+    largest solved and 4 random halos against the oracle; run_so_multi at
+    178/200/500, whose 178 run equals run_so's in every field."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine import solver
+    from so_tpu_torch.engine.pipeline import SOParams, run_so, run_so_multi
+    from so_tpu_torch.ops.grid import build_grid
+
+    t0 = time.perf_counter()
+    box = make_box(np.random.default_rng(SEED), 512 ** 3, 65536)
+    log(f"[512^3] make_box {time.perf_counter() - t0:.1f} s: "
+        f"{box[0].shape[0]} particles, {box[3].shape[0]} halos")
+    ps, catalog = particles_and_catalog(box, (), SEED)
+    centers, rgtp = box[3], box[4]
+    del box
+    G = centers.shape[0]
+    out, e2e, counts = counted_run("512^3 run_so", run_so, ps, catalog(),
+                                   SOParams(threshold=THR, device="cuda"))
+    log_run(f"512^3 run_so, WBOX_K_MIN {route_name(solver.WBOX_K_MIN)}",
+            out, e2e, G, counts)
+
+    t0 = time.perf_counter()
+    grid = build_grid(ps.pos, ps.mass, vel=ps.vel, ptype=ps.ptype_all(),
+                      mark=ps.mark, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[512^3] grid for the solve and --deltas: "
+        f"{time.perf_counter() - t0:.3f} s")
+    # the other setting: the giant tiers (above 2^21 slots) through the
+    # whole box when the default keeps them on the gather route
+    other = None if solver.WBOX_K_MIN is not None else 1 << 21
+    tag = f"512^3 solve, WBOX_K_MIN {route_name(other)}"
+    torch.cuda.reset_peak_memory_stats()
+    r, sec, c2 = route_solve(tag, grid, centers, rgtp, other)
+    same_solve(tag, r, out.solve)
+    log(f"[{tag}] solve {sec:.3f} s ({G / sec:.0f} solves/s), whole-box "
+        f"dispatches {c2['wbox']}, launches K1 {c2['K1']} K1s {c2['K1s']} "
+        f"K3 {c2['K3']}: code, Mvir, Rvir, j, d2cut of all {G} halos "
+        "identical to run_so's; peak device memory (the grid included) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del r
+    ok = np.nonzero(out.solve.code == 0)[0]
+    big = ok[np.argsort(out.solve.j[ok], kind="stable")[-4:]]
+    time_wbox_stage("512^3 whole box stage", grid, centers[big[-1:]],
+                    rgtp[big[-1:]])
+
+    rnd = np.random.default_rng(SEED).choice(G, 4, replace=False)
+    t0 = time.perf_counter()
+    oracle_check("512^3", ps, out, centers, rgtp, list(big) + list(rnd))
+    log(f"[512^3] halos {big.tolist()} (largest j "
+        f"{out.solve.j[big].tolist()}) and {rnd.tolist()} (codes "
+        f"{out.solve.code[rnd].tolist()}) equal the oracle (code, Mvir, "
+        f"Rvir to 2e-5); {time.perf_counter() - t0:.1f} s")
+
+    runs, e2e_m, counts = counted_run(
+        "512^3 run_so_multi", run_so_multi, ps, catalog(),
+        SOParams(threshold=THR, device="cuda"), (THR, 200.0, 500.0),
+        grid=grid)
+    pairs = assert_runs_equal("512^3 --deltas 178", runs[0], out, ())
+    log_run("512^3 run_so_multi 178/200/500", runs[0], e2e_m, G, counts)
+    log(f"[512^3 run_so_multi] threshold 178: {len(pairs)} fields and all "
+        "member lists identical to run_so's; ok at 200 / 500: "
+        f"{int((runs[1].solve.code == 0).sum())} / "
+        f"{int((runs[2].solve.code == 0).sum())}")
+    del grid, runs, out
+    torch.cuda.empty_cache()
+
+
+def phase_survey_box():
+    """bench.py's survey box: make_box(rng(12345), 2**25, 1_000_000).
+    solve_rvir with survey None (the auto-gate), True and False: codes,
+    Mvir, Rvir, j and d2cut identical; then one run_so end to end."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine import solver
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.ops.grid import build_grid
+
+    t0 = time.perf_counter()
+    box = make_box(np.random.default_rng(SEED), 2 ** 25, 1_000_000)
+    log(f"[survey box] make_box {time.perf_counter() - t0:.1f} s: "
+        f"{box[0].shape[0]} particles, {box[3].shape[0]} halos")
+    pos, mass, _, centers, rgtp = box
+    G = centers.shape[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid = build_grid(pos, mass, device="cuda")
+    res = {}
+    for survey in (None, True, False):
+        tag = f"survey box, survey={survey}"
+        r, sec, counts = route_solve(tag, grid, centers, rgtp,
+                                     solver.WBOX_K_MIN, survey=survey)
+        res[survey] = r
+        same_solve(tag, r, res[None])
+        log(f"[{tag}] solve {sec:.3f} s ({G / sec:.0f} solves/s), "
+            f"n_survey {r.n_survey}, launches K1 {counts['K1']} K1s "
+            f"{counts['K1s']} K3 {counts['K3']}, whole-box dispatches "
+            f"{counts['wbox']}")
+    # past its sample the gate either stops (at most SURVEY_SAMPLE halos
+    # resolved) or classifies the rest; the forced pass, grouped into other
+    # dispatches, may resolve a few halos more or fewer
+    n_auto, n_all = res[None].n_survey, res[True].n_survey
+    verdict = ("ran the full pre-pass" if n_auto > solver.SURVEY_SAMPLE
+               else "stopped after its sample")
+    log(f"[survey box] the auto-gate {verdict} ({n_auto} of {G} halos "
+        f"resolved; forced: {n_all}); codes, Mvir, Rvir, j, d2cut identical "
+        "across the three; peak device memory of the grid and the solves "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del grid, res
+    ps, catalog = particles_and_catalog(box, (), SEED)
+    del box
+    out, e2e, counts = counted_run("survey box run_so", run_so, ps,
+                                   catalog(), SOParams(threshold=THR,
+                                                       device="cuda"))
+    log_run("survey box run_so", out, e2e, G, counts)
+    del out
+    torch.cuda.empty_cache()
+
+
 def cuda_mesh(shape):
     from so_tpu_torch.parallel import make_mesh
 
@@ -1884,8 +2188,11 @@ def main():
     timed("cli paths", counted, "cli paths", phase_cli_paths, small)
     timed("--distributed 2^18", phase_distributed_paths)
     timed("giant", phase_giant, giant)
+    timed("whole box", phase_wbox, giant)
     del giant
     timed("giant vs cpu", phase_giant_vs_cpu)
+    timed("512^3", phase_512)
+    timed("survey box", phase_survey_box)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "so_tpu", "bench")]
     if bad:

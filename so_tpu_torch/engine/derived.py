@@ -164,23 +164,40 @@ def _derived_stage(grid, level: int, K: int, S: int, n_members: int,
     return der, sg.overflow
 
 
-def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
-                todo: np.ndarray, stage) -> None:
-    """Dispatch the halos ``todo`` at their 2*Rvir balls ``fball``, with
-    capacities from the exact per-halo slab footprints (one
-    enumeration-only pass, gather.footprint); a halo whose dispatch level needs
-    more slots overflows and retries at 4x. ``stage(part, level, K, S)``
-    gathers one dispatch, keeps the results of the rows that did not
-    overflow, and returns the host overflow mask."""
+# (halo, cell) pairs one footprint probe holds: cell_ranges keeps ~15
+# int64 tensors of that many entries at once (8 GB at 2^26)
+FOOTPRINT_PAIRS = 1 << 26
+
+
+def probe_capacities(grid, centers: np.ndarray, fball: np.ndarray,
+                     todo: np.ndarray) -> np.ndarray:
+    """(G,) i64 first capacities of the halos ``todo``: each one's exact
+    slab footprint (gather.footprint, an enumeration-only pass) at one
+    level and cube side for all of them, rounded up to a power of two (at
+    least 256); 0 elsewhere. The probe runs in chunks of halos, each at
+    most FOOTPRINT_PAIRS (halo, cell) pairs."""
     dev = grid.device
-    kl = _k_limit(grid)
     g0, S0 = _pick_level_span(grid, float(fball[todo].max()))
-    foot = footprint(grid, g0, torch.as_tensor(centers[todo], device=dev),
-                     torch.as_tensor(fball[todo], device=dev),
-                     S0).cpu().numpy()
+    step = max(1, FOOTPRINT_PAIRS // S0 ** 3)
+    foot = np.concatenate([
+        footprint(grid, g0, torch.as_tensor(centers[part], device=dev),
+                  torch.as_tensor(fball[part], device=dev), S0).cpu().numpy()
+        for part in (todo[lo:lo + step] for lo in range(0, todo.size, step))])
     need_cap = np.zeros(centers.shape[0], np.int64)
     need_cap[todo] = 2 ** np.ceil(np.log2(np.maximum(foot, 256))).astype(
         np.int64)
+    return need_cap
+
+
+def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
+                todo: np.ndarray, stage) -> None:
+    """Dispatch the halos ``todo`` at their 2*Rvir balls ``fball``, with
+    capacities from probe_capacities; a halo whose dispatch level needs
+    more slots overflows and retries at 4x. ``stage(part, level, K, S)``
+    gathers one dispatch, keeps the results of the rows that did not
+    overflow, and returns the host overflow mask."""
+    kl = _k_limit(grid)
+    need_cap = probe_capacities(grid, centers, fball, todo)
     rounds = 0
     while todo.size:
         rounds += 1

@@ -10,7 +10,8 @@ solver.solve_rvir is this loop at one threshold.
 
 The give-up ladder and the -1 check depend only on geometry and counts
 (kd2.c:765-778), so the escalation tracks one ball per halo and a
-(T,)-vector of verdicts.
+(T,)-vector of verdicts. On a uniform-mass CellGrid, tiers above
+solver.WBOX_K_MIN take the whole-box stage (solver._whole_box_stage).
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import torch
 
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
+from . import solver
 from .solver import (DK, SOLVE_SLOT_BUDGET, _chunk_for, _dispatch_chunks,
-                     _k_limit, _pick_level_span, enclosed_density,
-                     ladder_radius, rvir_ladder, rvir_reference_bits,
+                     _k_limit, _pick_level_span, _wbox_chunk,
+                     _whole_box_stage, enclosed_density, ladder_radius,
+                     pack_block, rvir_ladder, rvir_reference_bits,
                      scan_verdict, survey_pass)
 
 
@@ -53,12 +56,7 @@ def _multi_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
     cum, rho = enclosed_density(g.d2, mass_s, g.n_in, um)
     outs = [scan_verdict(g.d2, mass_s, g.n_in, cum, rho, thr, n_members, um)
             for thr in thresholds]
-    ints = torch.stack([g.n_in, g.overflow.long()], dim=1)
-    per_t = torch.stack([torch.stack([o["found"].long(), o["jstar"]], dim=1)
-                         for o in outs])
-    flts = torch.stack([torch.stack([o["mvir"], o["d2cut"]], dim=1)
-                        for o in outs])
-    return ints.cpu().numpy(), per_t.cpu().numpy(), flts.cpu().numpy()
+    return pack_block(g.n_in, g.overflow, outs)
 
 
 def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
@@ -101,6 +99,10 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     minus1_open = np.ones(G, bool)
     kl = _k_limit(grid)
     k_cap_max = max(2 * kl, k0_cap)
+    # the whole-box route: a single-device uniform-mass grid only (so never
+    # under --mesh or --distributed), for tiers above WBOX_K_MIN slots
+    wk = (solver.WBOX_K_MIN if isinstance(grid, CellGrid)
+          and grid.uniform_mass is not None else None)
 
     n_survey = 0
     if survey is not False and not resolved.all():
@@ -182,18 +184,38 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             raise RuntimeError("solver failed to converge (escalation "
                                "runaway)")
         live = np.nonzero(~resolved.all(axis=0))[0]
-        if rnd > 1:
-            # unify the capacity tier across a tail that fits one dispatch;
-            # otherwise only within a x16 band of the largest cap
-            capu = cur_cap[live].max()
-            if live.size <= _chunk_for(grid.parts * int(min(capu, kl)),
-                                       SOLVE_SLOT_BUDGET):
-                cur_cap[live] = capu
+        # unify the capacity tier across a tail that fits one dispatch;
+        # otherwise only within a x16 band of the largest cap. With the
+        # whole-box route live, only the gather tiers unify: a halo lifted
+        # into a whole-box tier would pay a full-box pass it does not need
+        sub = live if wk is None else live[np.minimum(cur_cap[live], kl)
+                                           <= wk]
+        if rnd > 1 and sub.size:
+            capu = cur_cap[sub].max()
+            if sub.size <= _chunk_for(grid.parts * int(min(capu, kl)),
+                                      SOLVE_SLOT_BUDGET):
+                cur_cap[sub] = capu
             else:
-                cur_cap[live[cur_cap[live] * 16 > capu]] = capu
+                cur_cap[sub[cur_cap[sub] * 16 > capu]] = capu
         for capacity in np.unique(cur_cap[live]):
             sel = live[cur_cap[live] == capacity]
             K = int(min(capacity, kl))
+            if wk is not None and K > wk:
+                # a halo whose -1 verdict is closed jumps to its last rung;
+                # a still-open one (every earlier round overflowed, so it
+                # is still at rung 1) first decides -1 at its current rung
+                k_dst = np.where(minus1_open[sel],
+                                 np.minimum(cur_k[sel], kmax[sel]), kmax[sel])
+                radii = ladder_radius(rgtp[sel], k_dst)
+                bw = _wbox_chunk(grid.n)
+                for lo in range(0, sel.size, bw):
+                    part = sel[lo:lo + bw]
+                    out = _whole_box_stage(
+                        grid, torch.as_tensor(centers[part], device=dev),
+                        torch.as_tensor(radii[lo:lo + part.size], device=dev),
+                        thresholds, n_members)
+                    apply_block(part, *out, k_dst[lo:lo + part.size], grid.n)
+                continue
             k_eff = np.minimum(cur_k[sel], kmax[sel])
             radii = ladder_radius(rgtp[sel], k_eff)
             level, S = _pick_level_span(grid, float(radii.max()))

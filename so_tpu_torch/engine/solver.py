@@ -26,6 +26,13 @@ round loop and drops the TPU's dispatch-shaping machinery. The scan is
 split into its threshold-free half (enclosed_density) and a verdict per
 threshold (scan_verdict); the round loop itself is multi.solve_rvir_multi,
 and solve_rvir is its one-threshold case.
+
+On a uniform-mass grid, capacity tiers above WBOX_K_MIN go to the
+whole-box terminal stage instead (_whole_box_stage): d2 of every particle
+to each center, no cells, no capacity, so no overflow. A halo whose -1
+verdict is closed jumps straight to its last ladder rung there: by the
+equivalence above, the one scan at that rung gives the verdict any path
+of escalations would.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.gather import unsorted_gather
+from ..ops.gather import min_image, unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
@@ -47,6 +54,12 @@ DK = 8             # ladder exponents per grow-ball escalation
 S_MAX = 7          # largest cell-cube side a gather enumerates
 SOLVE_SLOT_BUDGET = 1 << 26   # B*K slots per solve dispatch
 FUSED_SLOT_BUDGET = 1 << 25   # B*K slots per fused dispatch (five channels)
+# Capacity tiers above this many slots take the whole-box stage on a
+# uniform-mass CellGrid; None keeps every tier on the gather route. None is
+# wbox_study.py's pick on the card: the whole box wins on a box of a few
+# giants and loses by 5x and more on the 512^3 catalog (PERF.md).
+WBOX_K_MIN = None
+wbox_dispatches = 0           # whole-box stages run (a counter, as K1's)
 
 
 def rvir_reference_bits(mvir, thr) -> np.ndarray:
@@ -100,11 +113,13 @@ def _mass_ladder_on(m: float, K: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_mass_ladder(m, K), device=device)
 
 
-def _uniform_cum(uniform_m: float, K: int, n_in, live):
+def _uniform_cum(uniform_m: float, K: int, n_in, live, lad=None):
     """Serial-f32 cumulative mass over bit-identical-mass sorted rows:
     cum(i) = ladder[min(i, n_in-1)] (adding the zero pad never changes a
-    serial accumulator). Returns (cum, ladder)."""
-    lad = _mass_ladder_on(uniform_m, K, n_in.device)
+    serial accumulator). ``lad`` is a K-long ladder to use instead of the
+    cached one. Returns (cum, ladder)."""
+    if lad is None:
+        lad = _mass_ladder_on(uniform_m, K, n_in.device)
     last = torch.where(n_in > 0, lad[torch.clamp(n_in - 1, min=0)],
                        torch.zeros((), device=n_in.device))
     return torch.where(live, lad[None, :], last[:, None]), lad
@@ -119,16 +134,17 @@ def first_true(mask: torch.Tensor):
     return found, torch.where(found, first, torch.zeros_like(first))
 
 
-def enclosed_density(d2_s, mass_s, n_in, uniform_m: float | None = None):
+def enclosed_density(d2_s, mass_s, n_in, uniform_m: float | None = None,
+                     lad=None):
     """The threshold-free half of the scan over distance-sorted hits:
     (cum, rho), the serial f32 cumulative mass (K2, or the shared ladder
-    when ``mass_s`` is None on a uniform-mass grid) and the enclosed
-    density at each slot. ``mass_s`` is +0.0 on invalid slots, so K2's
-    chain stops at n_in."""
+    when ``mass_s`` is None on a uniform-mass grid; ``lad`` as in
+    _uniform_cum) and the enclosed density at each slot. ``mass_s`` is
+    +0.0 on invalid slots, so K2's chain stops at n_in."""
     K = d2_s.shape[1]
     slot = torch.arange(K, device=d2_s.device)[None, :]
     if uniform_m is not None:
-        cum, _ = _uniform_cum(uniform_m, K, n_in, slot < n_in[:, None])
+        cum, _ = _uniform_cum(uniform_m, K, n_in, slot < n_in[:, None], lad)
     else:
         cum = seq_cumsum(mass_s, n_in)    # C-order f32 (kd2.c:807), K2
     r3 = d2_s * sqrt_rn(d2_s)
@@ -161,6 +177,88 @@ def scan_verdict(d2_s, mass_s, n_in, cum, rho, thr: float, n_members: int,
     mvir = cum[rows, jstar] - m_at
     d2cut = d2_s[rows, jm1]
     return dict(found=found, jstar=jstar, mvir=mvir, d2cut=d2cut)
+
+
+def pack_block(n_in, overflow, outs):
+    """A stage's host block from its scan_verdict dicts (one a threshold):
+    ((B, 2) ints [n_in, overflow], (T, B, 2) ints [found, jstar], (T, B,
+    2) f32 [mvir, d2cut])."""
+    ints = torch.stack([n_in, overflow.long()], dim=1)
+    per_t = torch.stack([torch.stack([o["found"].long(), o["jstar"]], dim=1)
+                         for o in outs])
+    flts = torch.stack([torch.stack([o["mvir"], o["d2cut"]], dim=1)
+                        for o in outs])
+    return ints.cpu().numpy(), per_t.cpu().numpy(), flts.cpu().numpy()
+
+
+def whole_box_d2(grid: CellGrid, centers):
+    """(B, N) min-image d2 of every payload row to each center: ops/gather.
+    min_image's association (the shifted center first) and the
+    left-associated dx*dx + dy*dy + dz*dz, each op rounded once, as the
+    gather kernels compute it."""
+    n = grid.n
+    d2 = None
+    for ax in range(3):
+        d = min_image(centers[:, ax:ax + 1], grid.soa8t[ax, None, :n],
+                      grid.period[ax])
+        d.mul_(d)
+        d2 = d if d2 is None else d2.add_(d)
+    return d2
+
+
+def _wbox_ladder(grid: CellGrid) -> torch.Tensor:
+    """The grid's (N,) serial-f32 uniform-mass ladder on its device, built
+    once with np.cumsum and kept on the grid; whole-box stages slice it.
+    It stays out of _mass_ladder_on's cache, whose entries would pin one
+    such array a width."""
+    lad = getattr(grid, "_wbox_lad", None)
+    if lad is None:
+        lad = torch.as_tensor(np.cumsum(np.full(
+            grid.n, np.float32(grid.uniform_mass), np.float32)),
+            device=grid.device)
+        grid._wbox_lad = lad
+    return lad
+
+
+def _wbox_chunk(n_particles: int) -> int:
+    """Halos per whole-box dispatch: B * 2^ceil(log2 N) <= 2^27, at most
+    64."""
+    np2 = 1 << int(np.ceil(np.log2(max(n_particles, 2))))
+    return max(1, min(64, (1 << 27) // np2))
+
+
+def _whole_box_stage(grid: CellGrid, centers, radii, thresholds,
+                     n_members: int):
+    """The terminal tier of a uniform-mass grid, for T thresholds: d2 of
+    every particle (whole_box_d2), so overflow is impossible. Only the
+    in-ball values are sorted: each keyed row << 32 | d2 bits (d2 >= +0,
+    so its bits order as its values), one sort, laid out into (B, n_max)
+    rows padded with +inf. With one mass the scan reads values only, and
+    only below n_in, so these rows give the verdicts of a full-row sort
+    (equal d2 are interchangeable: the sort need not be stable). Returns
+    pack_block's block, overflow all False."""
+    global wbox_dispatches
+    wbox_dispatches += 1
+    d2 = whole_box_d2(grid, centers)
+    B = d2.shape[0]
+    dev = d2.device
+    inball = d2 <= (radii * radii)[:, None]
+    n_in = inball.sum(dim=1)
+    row = torch.repeat_interleave(torch.arange(B, device=dev), n_in)
+    key = (row << 32) | d2[inball].view(torch.int32).long()
+    del d2, inball
+    key = torch.sort(key).values
+    start = torch.cumsum(n_in, 0) - n_in
+    n_max = max(1, int(n_in.max()))
+    d2_s = torch.full((B, n_max), torch.inf, device=dev)
+    d2_s[row, torch.arange(key.numel(), device=dev) - start[row]] = (
+        (key & 0xFFFFFFFF).int().view(torch.float32))
+    um = grid.uniform_mass
+    cum, rho = enclosed_density(d2_s, None, n_in, um,
+                                _wbox_ladder(grid)[:n_max])
+    outs = [scan_verdict(d2_s, None, n_in, cum, rho, thr, n_members, um)
+            for thr in thresholds]
+    return pack_block(n_in, torch.zeros_like(n_in, dtype=torch.bool), outs)
 
 
 def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
