@@ -74,8 +74,10 @@ script exits nonzero:
      515151: one r^-2 clump of 1.6e6 particles on 3.4e6 uniform ones, 4
      giant centers on the clump and 60 small ones), run_so on "cuda" with
      general, then uniform masses. K1 and K3 must run in both, K2 in the
-     general one; the 4 giant halos' code, Mvir and Rvir must match
-     tests/reference_oracle.py (rel 2e-5). The general run is repeated
+     general one; K3's launches per (B, K) are logged, and the general
+     run must dispatch K3 at 2^21 slots or more; the 4 giant halos' code,
+     Mvir and Rvir must match tests/reference_oracle.py (rel 2e-5). The
+     general run is repeated
      with the in-ball counts K2's callers pass dropped (chains over all K
      slots): every field must be identical. Then the same configuration at
      200,000 / 120,000 / 12 with gather.PIECE_K_MIN lowered to 2^12, so
@@ -125,11 +127,34 @@ script exits nonzero:
  16. survey box: bench.py's make_box(rng(12345), 2**25, 1_000_000) (46.1M
      particles): solve_rvir with survey None, True and False (the gate's
      verdict, n_survey, seconds, peak device memory; identical results),
-     then run_so end to end with its phase seconds and peak device memory.
+     then run_so end to end with its phase seconds and peak device memory;
+     its 8 largest and 8 random other solved halos (seed 12345) against
+     tests/reference_oracle.py (rel 2e-5), four at a time.
+ 17. goldens: the 17 reference scenarios (tests/goldens; inputs from
+     tests/torch_scenarios.py, which imports nothing of so_tpu) through the
+     port's CLI in this process on "cuda", held by tests/torch_compare.py
+     to tests/test_torch_golden.py's rules (catalogs to float tolerance,
+     .sogrp/.sosub/.soign exactly, .sogtp field by field); the set runs at
+     the default routes, then with gather.PIECE_K_MIN at 512 (K3 and
+     sort_rows on every gather above 512 slots; K3 must run). One
+     [golden] line per scenario and route: seconds and launches.
+ 18. so_tpu at scale: the card against so_tpu's own outputs, written on
+     the CPU by tests/make_torch_refs.py into tests/torch_refs (the
+     inputs' sha256 checked against its manifest): the cold main-path runs
+     of phase 4 (standard box, both mass kinds) and the giant runs of
+     phase 11 (both mass kinds), not run again, by compare_to_ref: code,
+     Mvir, Rvir, j, vcm, the conflict pass's arrays, member sets, Vc and
+     profiles bit for bit; d2cut, rmass, rmax and vmax so_tpu's or, for a
+     halo where they differ (so_tpu's d2 sum is contracted into FMAs on
+     the CPU), the per-op numpy witness's (D2Witness), so_tpu's then
+     equal to the fused witness's. Then
+     scripts/compare_reference_zoom.py's box (7.3M particles, 4,096
+     halos) through the port's CLI on "cuda" with its flags, every file
+     held to so_tpu's by that script's rules.
 
 Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
-each giant run and each run or solve of 14-16 zero every kernel's launch
-counter
+each giant run, each run or solve of 14-16, each CLI run of 17 and the
+zoom run of 18 zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them (9's card-against-CPU check runs after its count is read), and
 log K2's launches per (B, K). The line before
@@ -166,6 +191,20 @@ MESH_WARM_RUNS = 2  # timed runs of each mesh after its cold run
 # sorted form's share
 LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0}
 K2_SHAPES = {}             # K2 launches per (B, K), summed over the paths
+# run_record, ParticleSet and centers of the runs that the "so_tpu at
+# scale" phase holds to tests/torch_refs, by box name
+AT_SCALE = {}
+REF_DIR = os.path.join(HERE, "tests", "torch_refs")
+# run_record's fields that read a particle's d2 bits: XLA:CPU contracts
+# so_tpu's d2 sum into FMAs, the port rounds every op (ROADMAP section 3,
+# "Intended"), so a halo where one differs is held to the per-op witness
+# and so_tpu's value there to the fused one
+D2_FIELDS = ("d2cut", "rmass", "rmax", "vmax")
+# compare_reference_zoom.py's configuration (main, :64-71) and flags (:47)
+ZOOM_BOX = dict(n_hi=6 << 20, n_lo=1 << 20, n_halos=4096)
+ZOOM_FLAGS = ["-all", "-grp", "-gtp", "-subsumed", "-ignored"]
+ZOOM_FLOAT = ("sovcirc", "sodark", "sogas", "sostar")
+ZOOM_EXACT = ("sogrp", "sosub", "soign")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 FADD = {"cycles": 4.0, "sm_hz": None}   # one dependent f32 add; phase_env
@@ -793,6 +832,7 @@ def zero_counts():
     slab_gather.launches = seqsum.launches = piece_gather.launches = 0
     slab_gather.sorted_launches = 0
     seqsum.shape_launches.clear()
+    piece_gather.shape_launches.clear()
 
 
 def read_counts():
@@ -876,6 +916,11 @@ def phase_main_path(box):
                 f"{post:.4f} s e2e {e2e:.4f} s ({n / e2e:.0f} halos/s)")
             if rep != "cold":
                 warm.append(dict(ph, **{"post-solve": post, "e2e": e2e}))
+            else:
+                cat = catalog()
+                AT_SCALE[f"standard_{tag}"] = dict(
+                    rec=run_record(out), ps=ps, centers=cat.pos,
+                    sha=inputs_sha256(ps, cat))
         med = {k: statistics.median(w[k] for w in warm) for k in warm[0]}
         e2es = [w["e2e"] for w in warm]
         log(f"[main {tag} median of {len(warm)} warm] e2e {med['e2e']:.4f} s "
@@ -1314,6 +1359,8 @@ def phase_giant(giant):
     import numpy as np
     import torch
 
+    from so_tpu_torch.ops import piece_gather
+
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from reference_oracle import oracle_rvir
 
@@ -1324,6 +1371,16 @@ def phase_giant(giant):
         out, e2e = counted(f"giant {tag}", run, ps, catalog, (), "cuda",
                            need=need)
         codes = check_run(f"giant {tag}", out, catalog().n)
+        k3 = dict(sorted(piece_gather.shape_launches.items()))
+        log(f"[giant {tag}] K3 launches per (B, K): " + ", ".join(
+            f"({b}, 2^{k.bit_length() - 1}): {n}" for (b, k), n in k3.items()))
+        if tag == "general" and max(k for _, k in k3) < 1 << 21:
+            raise AssertionError("giant general: no K3 dispatch of 2^21 "
+                                 "slots or more")
+        cat = catalog()
+        AT_SCALE[f"giant_{tag}"] = dict(rec=run_record(out), ps=ps,
+                                        centers=cat.pos,
+                                        sha=inputs_sha256(ps, cat))
         for h in range(4):
             want = oracle_rvir(ps.pos, mass, giant["centers"][h],
                                giant["rgtp"][h], (1.0, 1.0, 1.0), THR, 8)
@@ -1556,6 +1613,442 @@ def oracle_check(tag, ps, out, centers, rgtp, halos):
                                  f"oracle {want}")
 
 
+def inputs_sha256(ps, cat):
+    """sha256 of one run_so's inputs: the species split, the particle
+    arrays and the catalog's centers, rgtp and masses."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    hdr = ps.header
+    h.update(np.asarray([hdr.nsph, hdr.ndark, hdr.nstar], np.int64).tobytes())
+    for a in (ps.pos, ps.vel, ps.mass, ps.phi, cat.pos, cat.rgtp,
+              cat.gtp_mass):
+        h.update(np.ascontiguousarray(a, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def files_sha256(paths):
+    """(sha256 of the files' bytes in turn, their newline count)."""
+    import hashlib
+
+    h, lines = hashlib.sha256(), 0
+    for p in paths:
+        with open(p, "rb") as f:
+            while block := f.read(1 << 24):
+                h.update(block)
+                lines += block.count(b"\n")
+    return h.hexdigest(), lines
+
+
+def run_record(out):
+    """Per-halo arrays of one run_so result of either package (their SORun
+    fields share names), as tests/torch_refs/<box>.npz holds them: the
+    solve's code, Mvir, Rvir, j, d2cut and vcm; the conflict pass's
+    per-halo Mvir, Rvir and slurped flags, its two counters, the particles
+    each group owns, and the sha256 of igrp, n_subsumed and n_ignored; the
+    derived quantities; and each halo's member count (-1: no list) with
+    the first 8 bytes of the blake2b of its ids sorted ascending (the tie
+    order at equal d2 is free, docs/PARITY.md #3). Floats are f32, ints
+    i64."""
+    import hashlib
+
+    import numpy as np
+
+    def norm(a):
+        a = np.asarray(a)
+        return a.astype(np.float32 if a.dtype.kind == "f" else
+                        bool if a.dtype.kind == "b" else np.int64)
+
+    s, c, d = out.solve, out.conflicts, out.derived
+    rec = {f: norm(getattr(s, f))
+           for f in ("code", "mvir", "rvir", "j", "d2cut", "vcm")}
+    G = rec["code"].shape[0]
+    for f in ("mvir", "rvir", "slurped_own"):
+        rec[f"conflicts.{f}"] = norm(getattr(c, f))
+    rec["conflicts.groups"] = norm([c.groups_removed, c.groups_slurped])
+    igrp = np.asarray(c.igrp, np.int64)
+    rec["conflicts.igrp_counts"] = np.bincount(igrp, minlength=G + 1)
+    for f in ("igrp", "n_subsumed", "n_ignored"):
+        rec[f"conflicts.{f}_sha256"] = np.asarray(hashlib.sha256(
+            np.ascontiguousarray(getattr(c, f), np.int32).tobytes())
+            .hexdigest())
+    for f in ("vcirc", "rmass", "rmax", "vmax"):
+        rec[f] = norm(getattr(d, f))
+    for sp, v in d.profiles.items():
+        rec[f"profile.{sp}"] = norm(v)
+    count = np.full(G, -1, np.int64)
+    digest = np.zeros(G, np.uint64)
+    for h, m in enumerate(out.members):
+        if m is not None:
+            ids = np.sort(np.asarray(m, np.int64))
+            count[h] = ids.size
+            digest[h] = int.from_bytes(hashlib.blake2b(
+                ids.tobytes(), digest_size=8).digest(), "little")
+    rec["members.count"], rec["members.digest"] = count, digest
+    return rec
+
+
+def fma32(a, b, c):
+    """f32 fused multiply-add, fl32(a*b + c) with one rounding: the f64
+    product of two f32 values is exact, the f64 sum is rounded to odd
+    (TwoSum error term), and rounding an odd-rounded 53-bit value to 24
+    bits is the correct single rounding. Inputs are non-negative."""
+    import numpy as np
+
+    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    bits = s.view(np.int64).copy()
+    odd = (err != 0) & ((bits & 1) == 0)
+    bits[odd] += np.where(err[odd] > 0, 1, -1)
+    return bits.view(np.float64).astype(np.float32)
+
+
+class D2Witness:
+    """The numpy witnesses of a halo's D2_FIELDS under the two d2 forms
+    (tests/test_torch_solver.py's d2_forms): "per_op", each particle's d2
+    as the port's kernels round it, (c - p*rint((c - x)/p)) - x per axis,
+    squared and summed left to right, one rounding an op; "fused",
+    XLA:CPU's fma(dz, dz, fma(dx, dx, dy*dy)) over the same differences,
+    as so_tpu computes it on the CPU. Under each: d2cut the (j-1)-th of the
+    sorted d2; rmass, rmax and vmax from the sorted 2*Rvir ball as
+    tests/test_torch_pipeline.py's _d2_read_fields forms them (grav 1).
+    Only the particles of the cells about the halo are read: a grid of
+    NCELL^3 cells over the unit periodic box."""
+
+    NCELL = 64
+
+    def __init__(self, pos, mass, centers, rec, n_members=8):
+        import numpy as np
+
+        n = self.NCELL
+        ic = np.floor((np.asarray(pos, np.float64) + 0.5) * n).astype(
+            np.int64) % n
+        key = (ic[:, 0] * n + ic[:, 1]) * n + ic[:, 2]
+        self.order = np.argsort(key, kind="stable")
+        self.start = np.searchsorted(key[self.order], np.arange(n ** 3 + 1))
+        self.pos, self.mass, self.centers = pos, mass, centers
+        self.rec, self.n_members = rec, n_members
+
+    def near(self, c, r):
+        """Rows of the particles in the cells that meet the cube of
+        half-side r about c."""
+        import numpy as np
+
+        n = self.NCELL
+        axes = []
+        for a in range(3):
+            lo = int(np.floor((float(c[a]) - r + 0.5) * n)) - 1
+            hi = int(np.floor((float(c[a]) + r + 0.5) * n)) + 1
+            axes.append(np.arange(n) if hi - lo + 1 >= n
+                        else np.arange(lo, hi + 1) % n)
+        cells = ((axes[0][:, None, None] * n + axes[1][None, :, None]) * n
+                 + axes[2][None, None, :]).ravel()
+        return np.concatenate([self.order[self.start[k]:self.start[k + 1]]
+                               for k in cells])
+
+    def __call__(self, h):
+        """{"per_op": {field: value}, "fused": {field: value}} of halo h."""
+        import numpy as np
+
+        c = np.asarray(self.centers[h], np.float32)
+        rvir = self.rec["rvir"][h]
+        fball = np.float32(2.0) * rvir
+        rows = self.near(c, 1.001 * float(fball) + 1e-6)
+        p = np.float32(1.0)
+        d = (c - p * np.round((c - self.pos[rows]) / p)) - self.pos[rows]
+        x, y, z = d[:, 0], d[:, 1], d[:, 2]
+        mass = np.asarray(self.mass, np.float32)[rows]
+        return {"per_op": self.fields(x * x + y * y + z * z, mass, h),
+                "fused": self.fields(fma32(z, z, fma32(x, x, y * y)), mass,
+                                     h)}
+
+    def fields(self, d2, mass, h):
+        """D2_FIELDS of halo h from its rows' d2 under one form."""
+        import numpy as np
+
+        rvir, mvir = self.rec["rvir"][h], self.rec["mvir"][h]
+        j = int(self.rec["j"][h])
+        fball = np.float32(2.0) * rvir
+        srt = np.sort(d2)
+        nan = np.float32(np.nan)
+        d2cut = srt[j - 1] if 1 <= j <= srt.size else nan
+        ball = np.nonzero(d2 <= fball * fball)[0]
+        ball = ball[np.argsort(d2[ball], kind="stable")]
+        d2_s = d2[ball]
+        if not d2_s.size:
+            return dict(d2cut=d2cut, rmass=np.full(2, nan), rmax=nan,
+                        vmax=nan)
+        cum = np.cumsum(mass[ball], dtype=np.float32)
+        rmass = []
+        for f in (0.25, 0.5):
+            ge = cum >= np.float32(f) * mvir
+            rmass.append(np.sqrt(d2_s[np.argmax(ge) if ge.any() else -1]))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r_s = np.sqrt(d2_s)
+            vc = np.sqrt(cum / r_s)
+        vc[: self.n_members - 1] = -np.inf
+        jm = int(np.argmax(vc))
+        rmax, vmax = r_s[jm], vc[jm]
+        if not np.isfinite(vmax):
+            rmax = vmax = np.float32(0.0)
+        return dict(d2cut=d2cut, rmass=np.asarray(rmass, np.float32),
+                    rmax=rmax, vmax=vmax)
+
+
+def compare_to_ref(tag, rec, ref, witness):
+    """Hold one run's run_record to so_tpu's (``ref``): every field bit for
+    bit, but that where a halo's D2_FIELDS differ, the run's value must
+    equal ``witness(h)``'s per-op form and so_tpu's its fused form, so the
+    two d2 forms account for the difference. Returns {field: the halos
+    where it took the witness}; raises, listing every difference, on any
+    other."""
+    import numpy as np
+
+    errs = []
+    if set(rec) != set(ref):
+        raise AssertionError(f"{tag}: fields {sorted(set(rec) ^ set(ref))} "
+                             "on one side only")
+    G = rec["code"].shape[0]
+    wit, took = {}, {}
+    for k in sorted(ref):
+        a, b = np.asarray(rec[k]), np.asarray(ref[k])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            errs.append(f"{k}: {a.dtype}{a.shape} against so_tpu's "
+                        f"{b.dtype}{b.shape}")
+            continue
+        if a.ndim == 0 or a.shape[0] != G:
+            if a.tobytes() != b.tobytes():
+                errs.append(f"{k}: {a} against so_tpu's {b}")
+            continue
+        diff = np.nonzero((np.ascontiguousarray(a).view(np.uint8)
+                           .reshape(G, -1) != np.ascontiguousarray(b)
+                           .view(np.uint8).reshape(G, -1)).any(axis=1))[0]
+        if not diff.size:
+            continue
+        if k not in D2_FIELDS:
+            errs.append(f"{k}: {diff.size} halos differ, first "
+                        f"{diff[:5].tolist()}: {a[diff[:3]].tolist()} "
+                        f"against so_tpu's {b[diff[:3]].tolist()}")
+            continue
+        took[k] = diff.tolist()
+        for h in took[k]:
+            if h not in wit:
+                wit[h] = witness(h)
+            w = {form: np.asarray(v[k], np.float32)
+                 for form, v in wit[h].items()}
+            if (w["per_op"].tobytes() != a[h].tobytes()
+                    or w["fused"].tobytes() != b[h].tobytes()):
+                errs.append(f"{k} of halo {h}: {a[h].tolist()} against "
+                            f"the per-op witness {w['per_op'].tolist()}, "
+                            f"so_tpu's {b[h].tolist()} against the fused "
+                            f"witness {w['fused'].tolist()}")
+    if errs:
+        raise AssertionError(f"{tag} against so_tpu ({len(errs)}):\n"
+                             + "\n".join(errs[:20]))
+    return took
+
+
+def load_ref(name):
+    """tests/torch_refs/<name>.npz as a dict of arrays."""
+    import numpy as np
+
+    with np.load(os.path.join(REF_DIR, f"{name}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def write_zoom_inputs(work, n_hi, n_lo, n_halos):
+    """compare_reference_zoom.py's inputs: make_zoom_box(rng(2026), ...)
+    written as work/snap.bin (gas, dark, star) and work/cat.gtp with masses
+    from the same generator; returns the two files' sha256."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_scenarios import make_zoom_box, write_gtp, write_snapshot
+
+    rng = np.random.default_rng(2026)
+    data, split, centers, rmax = make_zoom_box(rng, n_hi, n_lo, n_halos)
+    os.makedirs(work, exist_ok=True)
+    write_snapshot(f"{work}/snap.bin", data, time=1.0, split=split)
+    gtp_mass = rng.uniform(0.001, 1.0, n_halos).astype(np.float32)
+    write_gtp(f"{work}/cat.gtp", centers, rmax, gtp_mass, time=1.0)
+    return files_sha256([f"{work}/snap.bin", f"{work}/cat.gtp"])[0]
+
+
+def cli_record(base):
+    """What tests/torch_refs/zoom.npz holds of one CLI run's files
+    ``base``.<ext>: each float file's text without the lines that
+    compare_text skips (the run time, the paths), the .sogtp's bytes, and
+    each exact file's sha256 and line count."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_compare import SKIP_SUBSTRINGS
+
+    rec = {}
+    for ext in ZOOM_FLOAT:
+        with open(f"{base}.{ext}", "rb") as f:
+            text = b"".join(ln for ln in f if not any(
+                s.encode() in ln for s in SKIP_SUBSTRINGS))
+        rec[f"file.{ext}"] = np.frombuffer(text, np.uint8)
+    with open(f"{base}.sogtp", "rb") as f:
+        rec["file.sogtp"] = np.frombuffer(f.read(), np.uint8)
+    for ext in ZOOM_EXACT:
+        sha, lines = files_sha256([f"{base}.{ext}"])
+        rec[f"sha256.{ext}"] = np.asarray(sha)
+        rec[f"lines.{ext}"] = np.asarray(lines, np.int64)
+    return rec
+
+
+def compare_cli_files(tag, base, ref):
+    """One CLI run's files ``base``.<ext> against so_tpu's (``ref``, a
+    cli_record) by compare_reference_zoom.py's rules: catalogs and
+    profiles to float tolerance (tests/torch_compare.compare_text), the
+    .sogtp field by field, .sogrp/.sosub/.soign exactly (sha256 and line
+    count). Raises listing the differences."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_compare import compare_sogtp, compare_text
+
+    errs = []
+    for ext in ZOOM_FLOAT:
+        with open(f"{base}.{ext}") as f:
+            errs += compare_text(ref[f"file.{ext}"].tobytes().decode(),
+                                 f.read(), f"{tag} .{ext}")
+    with open(f"{base}.so_tpu.sogtp", "wb") as f:
+        f.write(ref["file.sogtp"].tobytes())
+    errs += compare_sogtp(f"{base}.so_tpu.sogtp", f"{base}.sogtp")
+    for ext in ZOOM_EXACT:
+        got = files_sha256([f"{base}.{ext}"])
+        want = (str(ref[f"sha256.{ext}"]), int(ref[f"lines.{ext}"]))
+        if got != want:
+            errs.append(f"{tag} .{ext}: sha256, lines {got} against "
+                        f"so_tpu's {want}")
+    if errs:
+        raise AssertionError("\n".join(errs[:20]))
+
+
+def phase_goldens():
+    """The 17 reference goldens (tests/goldens, scenarios of
+    tests/torch_scenarios.py) through the port's CLI in this process on
+    "cuda", compared by tests/test_torch_golden.py's rules: catalogs to
+    float tolerance, .sogrp/.sosub/.soign exactly, .sogtp field by field.
+    The set runs twice: at the default routes, then with
+    gather.PIECE_K_MIN at 512, so K3 and sort_rows serve every gather
+    above 512 slots; K3 must run in that pass. Each scenario must launch
+    K1's sorted form at the default routes, K1 or K3 at 512."""
+    from so_tpu_torch.ops import gather
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_compare import compare_exact_file, compare_file, compare_sogtp
+    from torch_scenarios import OUTPUT_FILES, SCENARIOS, generate_inputs
+
+    base = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_goldens")
+    args = {name: generate_inputs(name, f"{base}/{name}")
+            for name in sorted(SCENARIOS)}
+    kmin = gather.PIECE_K_MIN
+    for route, k in (("default", kmin), ("PIECE_K_MIN 512", 512)):
+        gather.PIECE_K_MIN = k
+        total = dict.fromkeys(LAUNCHES, 0)
+        try:
+            for name, a in args.items():
+                work = f"{base}/{name}"
+                argv = ["-i", f"{work}/cat.gtp", "-o", f"{work}/got",
+                        "--tipsy", f"{work}/snap.bin", "--device",
+                        "cuda"] + a
+                remove_outputs(f"{work}/got")
+                zero_counts()
+                _, sec, _ = cli_in_process(argv)
+                counts = read_counts()
+                errs = []
+                for ext in OUTPUT_FILES:
+                    want, got = f"{HERE}/tests/goldens/{name}/{ext}", \
+                        f"{work}/got.{ext}"
+                    if not os.path.exists(want):
+                        continue
+                    if not os.path.exists(got):
+                        errs.append(f"missing output {got}")
+                    elif ext == "sogtp":
+                        errs += compare_sogtp(want, got, SCENARIOS[name][2])
+                    elif ext in ("sogrp", "sosub", "soign"):
+                        errs += compare_exact_file(want, got)
+                    else:
+                        errs += compare_file(want, got)
+                if errs:
+                    raise AssertionError(f"golden {name} ({route}):\n"
+                                         + "\n".join(errs[:10]))
+                if (min(counts["K1"], counts["K1s"]) if route == "default"
+                        else counts["K1"] + counts["K3"]) <= 0:
+                    raise AssertionError(f"golden {name} ({route}): a "
+                                         f"gather kernel never ran: {counts}")
+                for key, v in counts.items():
+                    total[key] += v
+                    LAUNCHES[key] += v
+                log(f"[golden] {name} ({route}): equal to tests/goldens; "
+                    f"{sec:.2f} s; launches K1 {counts['K1']} K1s "
+                    f"{counts['K1s']} K2 {counts['K2']} K3 {counts['K3']}")
+        finally:
+            gather.PIECE_K_MIN = kmin
+        if route != "default" and total["K3"] <= 0:
+            raise AssertionError(f"goldens ({route}): K3 never ran")
+        log(f"[goldens {route}] {len(args)} scenarios equal to "
+            f"tests/goldens; launches {total}")
+
+
+def phase_at_scale():
+    """The card against so_tpu's own outputs (tests/torch_refs, written on
+    the CPU by tests/make_torch_refs.py; inputs checked by their sha256):
+    the run_so results of the main-path (standard box, both mass kinds)
+    and giant (both mass kinds) phases by compare_to_ref, and the CLI with
+    compare_reference_zoom.py's flags on its zoom box, run here on "cuda",
+    by compare_cli_files."""
+    import torch
+
+    with open(os.path.join(REF_DIR, "manifest.json")) as f:
+        manifest = json.load(f)["boxes"]
+    for name in ("standard_uniform", "standard_species", "giant_general",
+                 "giant_uniform"):
+        run = AT_SCALE.pop(name)
+        if run["sha"] != manifest[name]["inputs_sha256"]:
+            raise AssertionError(f"{name}: inputs differ from so_tpu's")
+        t0 = time.perf_counter()
+        rec = run["rec"]
+        took = compare_to_ref(name, rec, load_ref(name), D2Witness(
+            run["ps"].pos, run["ps"].mass, run["centers"], rec))
+        log(f"[so_tpu at scale] {name}: {rec['code'].shape[0]} halos "
+            f"({int((rec['code'] == 0).sum())} solved), {len(rec)} fields "
+            f"equal to so_tpu's but for {len(set().union(*took.values()))} "
+            "halos that equal the per-op witness instead, so_tpu's the "
+            "fused one ("
+            + ", ".join(f"{k} {len(v)}" for k, v in took.items())
+            + f"); {time.perf_counter() - t0:.1f} s")
+    work = os.path.join(HERE, "so_tpu_torch", "_build", "chip_smoke_zoom")
+    t0 = time.perf_counter()
+    sha = write_zoom_inputs(work, **ZOOM_BOX)
+    if sha != manifest["zoom"]["inputs_sha256"]:
+        raise AssertionError("zoom: inputs differ from so_tpu's")
+    made = time.perf_counter() - t0
+    remove_outputs(f"{work}/got")
+    torch.cuda.reset_peak_memory_stats()
+    _, sec, err = counted("zoom", cli_in_process, [
+        "-i", f"{work}/cat.gtp", "-o", f"{work}/got", "--tipsy",
+        f"{work}/snap.bin", "--device", "cuda", "--verbose"] + ZOOM_FLAGS,
+        need=("K1", "K1s", "K2"))
+    k3 = read_counts()["K3"]
+    k3 = (f"K3 launched {k3} times (a ball above 2^15 slots)" if k3 else
+          "K3 not launched (no ball above 2^15 slots)")
+    t0 = time.perf_counter()
+    compare_cli_files("zoom", f"{work}/got", load_ref("zoom"))
+    log(f"[so_tpu at scale] zoom: {ZOOM_BOX}, inputs {made:.1f} s; the "
+        f"CLI on the card {sec:.2f} s{phase_table(err)}; {k3}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every "
+        "file equal to so_tpu's by compare_reference_zoom.py's rules, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_512():
     """so_tpu's 512^3 catalog (experiments/scale512.py): make_box(rng(12345),
     512**3, 65536), uniform masses, Delta 178. run_so once on "cuda"; the
@@ -1632,7 +2125,8 @@ def phase_512():
 def phase_survey_box():
     """bench.py's survey box: make_box(rng(12345), 2**25, 1_000_000).
     solve_rvir with survey None (the auto-gate), True and False: codes,
-    Mvir, Rvir, j and d2cut identical; then one run_so end to end."""
+    Mvir, Rvir, j and d2cut identical; then one run_so end to end, whose 8
+    largest and 8 random other solved halos must equal the oracle."""
     import numpy as np
     import torch
 
@@ -1677,6 +2171,16 @@ def phase_survey_box():
                                    catalog(), SOParams(threshold=THR,
                                                        device="cuda"))
     log_run("survey box run_so", out, e2e, G, counts)
+    ok = np.nonzero(out.solve.code == 0)[0]
+    big = ok[np.argsort(out.solve.j[ok], kind="stable")[-8:]]
+    rnd = np.random.default_rng(SEED).choice(np.setdiff1d(ok, big), 8,
+                                             replace=False)
+    t0 = time.perf_counter()
+    oracle_check("survey box", ps, out, centers, rgtp, list(big) + list(rnd))
+    log(f"[survey box] solved halos {big.tolist()} (largest j "
+        f"{out.solve.j[big].tolist()}) and {rnd.tolist()} (j "
+        f"{out.solve.j[rnd].tolist()}) equal the oracle (code, Mvir, Rvir "
+        f"to 2e-5); {time.perf_counter() - t0:.1f} s")
     del out
     torch.cuda.empty_cache()
 
@@ -2000,6 +2504,15 @@ def phase_table(text):
     return "; phases: " + ", ".join(out)
 
 
+def remove_outputs(base):
+    """Delete every ``base``.* file an earlier run left, so a comparison
+    reads only files the next run wrote."""
+    import glob
+
+    for path in glob.glob(glob.escape(base) + ".*"):
+        os.remove(path)
+
+
 def cli_in_process(args):
     """The port's CLI in this process: (the SO CPU Time it reports, e2e
     seconds, its stderr)."""
@@ -2176,6 +2689,7 @@ def main():
     small = make_box(np.random.default_rng(SEED), 1 << 18, 2048)
     timed("gpu vs cpu", phase_gpu_vs_cpu, small)
     timed("cli", phase_cli, small)
+    timed("goldens", phase_goldens)
     timed("-pot", counted, "-pot", phase_pot, box, small)
     timed("--deltas", counted, "--deltas", phase_multi, box)
     timed("--mesh", phase_mesh, box)
@@ -2191,6 +2705,7 @@ def main():
     timed("whole box", phase_wbox, giant)
     del giant
     timed("giant vs cpu", phase_giant_vs_cpu)
+    timed("so_tpu at scale", phase_at_scale)
     timed("512^3", phase_512)
     timed("survey box", phase_survey_box)
     bad = [m for m in sys.modules

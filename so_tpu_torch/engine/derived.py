@@ -190,14 +190,16 @@ def probe_capacities(grid, centers: np.ndarray, fball: np.ndarray,
 
 
 def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
-                todo: np.ndarray, stage) -> None:
+                todo: np.ndarray, stage, need_cap=None) -> None:
     """Dispatch the halos ``todo`` at their 2*Rvir balls ``fball``, with
-    capacities from probe_capacities; a halo whose dispatch level needs
-    more slots overflows and retries at 4x. ``stage(part, level, K, S)``
-    gathers one dispatch, keeps the results of the rows that did not
-    overflow, and returns the host overflow mask."""
+    capacities from probe_capacities (or ``need_cap``, (G,) first
+    capacities); a halo whose dispatch level needs more slots overflows
+    and retries at 4x. ``stage(part, level, K, S)`` gathers one dispatch,
+    keeps the results of the rows that did not overflow, and returns the
+    host overflow mask."""
     kl = _k_limit(grid)
-    need_cap = probe_capacities(grid, centers, fball, todo)
+    need_cap = (probe_capacities(grid, centers, fball, todo)
+                if need_cap is None else np.array(need_cap, np.int64))
     rounds = 0
     while todo.size:
         rounds += 1

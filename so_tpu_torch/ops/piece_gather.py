@@ -26,6 +26,7 @@ to its own form).
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 
@@ -36,6 +37,7 @@ from .slab_gather import channel_codes, check_inputs, row_fields
 PIECE_W = 2      # chunks per piece (the experiment's PIECE_W)
 
 launches = 0     # kernel launches of piece_gather_rows (CUDA only)
+shape_launches = Counter()   # the same launches per (B, K)
 
 # Pieces a block: pieces_per_block takes the one of PIECE_GROUPS whose
 # grid of B * NP / p blocks lies nearest, by ratio, to BLOCKS_PER_SM blocks
@@ -198,4 +200,5 @@ def piece_gather_rows(soa8t, src, t0, v, lo, hi, n_pieces, n_chunks,
         out.data_ptr(), idx.data_ptr() if idx is not None else None,
         pieces_per_block(B, NP, _cuda.sm_count(dev)))
     launches += 1
+    shape_launches[(B, K)] += 1
     return out[:, 0], out[:, 1:], idx

@@ -766,6 +766,33 @@ def test_giant_route_cuda_matches_cpu(dev, monkeypatch):
             assert a.tobytes() == b.tobytes()
 
 
+def test_extract_members_cuda_matches_cpu(dev, monkeypatch):
+    """engine.extract_members with gather.PIECE_K_MIN at 512, so K3 and
+    sort_rows serve its balls: the card's member lists and vcm equal the
+    CPU's, with and without cap_hint."""
+    from so_tpu_torch.engine import extract_members, solve_rvir
+    from so_tpu_torch.ops import gather, piece_gather
+
+    ps, cat = _pipeline_box()
+    c = cat()
+    grids = {d: build_grid(ps.pos, ps.mass, vel=ps.vel, device=d)
+             for d in ("cuda", "cpu")}
+    s = solve_rvir(grids["cpu"], c.pos, c.rgtp, 178.0)
+    ok = s.code == 0
+    assert ok.all()
+    args = (c.pos[ok], s.d2cut[ok], s.j[ok], s.mvir[ok])
+    monkeypatch.setattr(gather, "PIECE_K_MIN", 512)
+    for hint in (None, s.kcap[ok]):
+        n0 = piece_gather.launches
+        got, gv = extract_members(grids["cuda"], *args, cap_hint=hint)
+        assert piece_gather.launches > n0
+        want, wv = extract_members(grids["cpu"], *args, cap_hint=hint)
+        assert gv.tobytes() == wv.tobytes()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert [g.size for g in got] == s.j[ok].tolist()
+
+
 def test_whole_box_route_cuda_matches_cpu(dev, monkeypatch):
     """solver.WBOX_K_MIN lowered to 256 on a uniform-mass box: the
     whole-box stage runs on the card, and the solve and the multi solve
