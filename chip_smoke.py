@@ -151,10 +151,19 @@ script exits nonzero:
      scripts/compare_reference_zoom.py's box (7.3M particles, 4,096
      halos) through the port's CLI on "cuda" with its flags, every file
      held to so_tpu's by that script's rules.
+ 19. surface: so_tpu's library entry points beside the CLI on the
+     standard box (after phase 13): extract_members_sharded on a 1x2 mesh
+     of cuda:0 against the CellGrid's extract_members, at the default
+     routes and with PIECE_K_MIN at 512 (K3); scan_sorted at (16384,
+     4096) on both mass kinds against its plain version and against
+     solve_rvir; ragged_ball_gather for 4,096 halos, card against CPU,
+     both sort modes; the batched Delta_vir and Romberg against the host
+     scalars (phase_surface's docstring has the rules). One [surface]
+     line a check, with its seconds and launches.
 
 Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
-each giant run, each run or solve of 14-16, each CLI run of 17 and the
-zoom run of 18 zero every kernel's launch counter
+each giant run, each run or solve of 14-16, each CLI run of 17, the
+zoom run of 18 and each check of 19 zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them (9's card-against-CPU check runs after its count is read), and
 log K2's launches per (B, K). The line before
@@ -175,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 THR = 178.0
@@ -638,7 +648,7 @@ def phase_k2():
         on_cpu = K >= 1 << 14
         err, t0 = 0.0, time.perf_counter()
         for tag, n_valid in (("", None), (" n_valid", nv)):
-            got = seqsum.seq_cumsum(x, n_valid)
+            got = seqsum.seq_cumsum(x, n_valid=n_valid)
             if on_cpu:
                 want = seqsum.seq_cumsum_plain(
                     x.cpu(), None if n_valid is None else n_valid.cpu())
@@ -653,7 +663,7 @@ def phase_k2():
         reps = 20 if K <= 1 << 16 else 4
         ms = cuda_ms(lambda: seqsum.seq_cumsum(x), reps)
         dev_ms = graph_ms(lambda: seqsum.seq_cumsum(x), reps)
-        dev_ms_nv = graph_ms(lambda: seqsum.seq_cumsum(x, nv), reps)
+        dev_ms_nv = graph_ms(lambda: seqsum.seq_cumsum(x, n_valid=nv), reps)
         bms, by = k2_bound(B, K)
         bms_nv, by_nv = k2_bound(B, K, nv)
         rows = seqsum.rows_per_block(B, K, n_sm)
@@ -864,7 +874,7 @@ def counted(tag, fn, *a, need=("K1", "K1s", "K2"), **kw):
     counts = read_counts()
     log(f"[{tag}] launches: {counts}")
     read_k2_shapes(tag)
-    if min(counts[k] for k in need) <= 0:
+    if any(counts[k] <= 0 for k in need):
         raise AssertionError(f"{tag}: a kernel of the path never ran: "
                              f"{counts}")
     for k, v in counts.items():
@@ -2650,6 +2660,237 @@ def phase_distributed_paths():
             f"{e2e:.4f} s{phase_table(text)}")
 
 
+def surface_counted(tag, need, fn, *a, **kw):
+    """counted() for one check of the surface phase: also its seconds (to
+    the card's synchronize) and its launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = counted(f"surface {tag}", fn, *a, need=need, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def lists_agree(tag, ps, centers, got, want):
+    """Member lists equal, but for the order of members at equal d2 (the
+    shard merge orders a tie by shard, docs/PARITY.md #3). Returns the
+    number of lists whose order differs within a tie."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} lists against {len(want)}")
+    ties = 0
+    for h, (a, b) in enumerate(zip(got, want)):
+        if np.array_equal(a, b):
+            continue
+        if not np.array_equal(np.sort(a), np.sort(b)) or not np.array_equal(
+                member_d2(ps, centers[h], a), member_d2(ps, centers[h], b)):
+            raise AssertionError(f"{tag}: members of list {h} differ")
+        ties += 1
+    return ties
+
+
+def phase_surface(box):
+    """so_tpu's library surface beside the CLI, on the card at the
+    standard box's size (masses uniform or uniform(0.5, 1.5)/N, velocities
+    normal(0, 1), seed SEED + 7):
+      - parallel.extract_members_sharded on a 1x2 mesh of the card over
+        the solved halos, host_mv rebuilt from the shards, against the
+        CellGrid's engine.extract_members (lists equal but for the order
+        within equal d2, vcm bit for bit); again with PIECE_K_MIN at 512
+        (K3 and sort_rows);
+      - engine.solver.scan_sorted at (16384, 4096), the sorted hits of
+        every halo at the solve's second ladder radius (rung 1 + DK; at
+        rung 1 the particle past j* mostly lies outside), capped at the
+        99th percentile of those radii (the one level a dispatch takes is
+        set by its largest ball, and the largest few would make most
+        footprints overflow), both mass kinds, against
+        its plain version on CPU copies (found, jstar, mvir, rvir, d2cut
+        bit for bit, vcm within the f32 bound of two sums of its n = jstar
+        terms in other orders, (n + 2) 2^-23 sum|m v| / Mvir) and against
+        solve_rvir: a halo
+        that scan finds without overflow has the solve's code 0 (jstar =
+        j, Mvir and d2cut bit for bit) or -2 (jstar = nMembers - 2), and
+        a code-0 halo whose ball holds its j + 2 nearest is found, which
+        must be a quarter of them or more;
+      - ops.gather.ragged_ball_gather for the first 4,096 halos at the
+        same radii, K = 4096, on "cuda" and on the CPU, both sort modes:
+        d2, idx, n_in and overflow bit for bit;
+      - cosmology.rhovir_over_rhobar_torch over a 6 x 6 (Omega0, z) grid,
+        both fits, on "cuda": in f64 the host scalar to rtol 1e-12, in f32
+        to rtol 5e-5 (the f32 form's cancellation in sinh(eta) - eta as
+        Omega(z) -> 1); numerics.romberg_torch over 64 intervals against
+        dromberg_o (rtol 1e-5)."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.cosmology import (rhovir_over_rhobar,
+                                        rhovir_over_rhobar_torch)
+    from so_tpu_torch.engine import extract_members, solve_rvir
+    from so_tpu_torch.engine.solver import (DK, _pick_level_span,
+                                            ladder_radius, rvir_ladder,
+                                            scan_sorted)
+    from so_tpu_torch.numerics import dromberg_o, romberg_torch
+    from so_tpu_torch.ops import gather
+    from so_tpu_torch.ops.grid import build_grid
+    from so_tpu_torch.parallel import (build_sharded_grid,
+                                       extract_members_sharded)
+
+    pos, mass_u, _, centers, rgtp = box
+    n = pos.shape[0]
+    rng = np.random.default_rng(SEED + 7)
+    vel = rng.normal(size=(n, 3)).astype(np.float32)
+    mass_g = (rng.uniform(0.5, 1.5, n) / n).astype(np.float32)
+    grids = {k: build_grid(pos, m, vel=vel, device="cuda")
+             for k, m in (("uniform", mass_u), ("general", mass_g))}
+    solves = {k: solve_rvir(g, centers, rgtp, THR) for k, g in grids.items()}
+
+    # extract_members_sharded against the CellGrid's extract_members
+    s = solves["uniform"]
+    ok = s.code == 0
+    args = (centers[ok], s.d2cut[ok], s.j[ok], s.mvir[ok])
+    want, want_vcm = extract_members(grids["uniform"], *args,
+                                     host_mv=(vel, mass_u))
+    mesh = cuda_mesh((1, 2))
+    sgrid = build_sharded_grid(pos, mass_u, vel=vel, mesh=mesh)
+    keep = gather.PIECE_K_MIN
+    for piece_k_min, need in ((keep, ("K1s",)), (512, ("K3",))):
+        gather.PIECE_K_MIN = piece_k_min
+        try:
+            (got, got_vcm), dt, counts = surface_counted(
+                "members", need, extract_members_sharded, mesh, sgrid, *args)
+        finally:
+            gather.PIECE_K_MIN = keep
+        if got_vcm.tobytes() != want_vcm.tobytes():
+            raise AssertionError("surface: vcm differs from the CellGrid's")
+        ties = lists_agree("surface members", types.SimpleNamespace(pos=pos),
+                           centers[ok], got, want)
+        log(f"[surface] extract_members_sharded 1x2, PIECE_K_MIN "
+            f"{piece_k_min}: {len(got)} lists ({sum(x.size for x in got)} "
+            f"members) equal the CellGrid's, {ties} in another order within "
+            f"equal d2; vcm bit for bit; {dt:.3f} s; launches {counts}")
+
+    # scan_sorted at (16384, 4096), and ragged_ball_gather at its radii
+    kmax, _ = rvir_ladder(rgtp, grids["uniform"].period_np())
+    radii = ladder_radius(rgtp, np.minimum(1 + DK, kmax))
+    radii = np.minimum(radii, np.float32(np.quantile(radii, 0.99)))
+    level, S = _pick_level_span(grids["uniform"], float(radii.max()))
+    c = torch.as_tensor(centers, device="cuda")
+    r = torch.as_tensor(radii, device="cuda")
+    K = 4096
+    for kind, g in grids.items():
+        sg = gather.slab_gather(g, level, c, r, r * r, K, S, ("mass", "idx"))
+        idx = sg.channels[1]
+        vel_s = torch.where((idx >= 0)[..., None],
+                            g.vel_a()[idx.clamp(min=0).long()], 0.0)
+        inputs = (sg.d2, sg.channels[0], vel_s, sg.n_in)
+        um = g.uniform_mass
+        out, dt, counts = surface_counted(
+            f"scan {kind}", () if um is not None else ("K2",), scan_sorted,
+            *inputs, THR, 8, uniform_m=um)
+        plain = scan_sorted(*(t.cpu() for t in inputs), THR, 8,
+                            uniform_m=um)
+        for f in ("found", "jstar", "mvir", "rvir", "d2cut"):
+            assert_same_bits(f"surface scan {kind} {f}", out[f].cpu(),
+                             plain[f])
+        found = plain["found"].numpy()
+        # two f32 sums of the same n = jstar terms in any orders differ by
+        # at most (n + 2) 2^-23 sum|m v| after the quotient by Mvir
+        n = out["jstar"][:, None].double()
+        slot = torch.arange(K, device="cuda")[None, :]
+        absum = (torch.where(slot < n, inputs[1].double(), 0.0)[:, :, None]
+                 * vel_s.double().abs()).sum(dim=1)
+        bound = ((n + 2) * 2.0 ** -23 * absum
+                 / out["mvir"][:, None]).cpu().numpy()[found]
+        diff = np.abs(out["vcm"].cpu().numpy() - plain["vcm"].numpy())[found]
+        vcm_err = float((diff / bound).max())
+        if not vcm_err <= 1.0:
+            raise AssertionError(f"surface scan {kind}: vcm at {vcm_err} of "
+                                 "its f32 summation bound")
+        del absum
+        sv = solves[kind]
+        ovf = sg.overflow.cpu().numpy()
+        n_in = sg.n_in.cpu().numpy()
+        jstar = plain["jstar"].numpy()
+        hit = found & ~ovf
+        if not np.isin(sv.code[hit], (0, -2)).all():
+            raise AssertionError(f"surface scan {kind}: a found halo's "
+                                 "solve code is not 0 or -2")
+        m2 = hit & (sv.code == -2)
+        solved = hit & (sv.code == 0)
+        if (jstar[m2] != 6).any() or (jstar[solved] != sv.j[solved]).any():
+            raise AssertionError(f"surface scan {kind}: jstar is not the "
+                                 "solve's")
+        for f in ("mvir", "d2cut"):
+            a = plain[f].numpy()[solved]
+            if a.tobytes() != getattr(sv, f)[solved].tobytes():
+                raise AssertionError(f"surface scan {kind}: {f} is not the "
+                                     "solve's")
+        reach = (sv.code == 0) & ~ovf & (n_in > sv.j + 1)
+        if not found[reach].all():
+            raise AssertionError(f"surface scan {kind}: a solved halo whose "
+                                 "ball holds its j + 2 nearest is not found")
+        if 4 * solved.sum() < (sv.code == 0).sum():
+            raise AssertionError(f"surface scan {kind}: {int(solved.sum())} "
+                                 "solved halos found")
+        log(f"[surface] scan_sorted ({c.shape[0]}, {K}) {kind}: card = plain "
+            f"(found/jstar/mvir/rvir/d2cut bit for bit, vcm at most "
+            f"{vcm_err:.3g} of its f32 summation bound); "
+            f"{int(solved.sum())} found halos equal "
+            f"solve_rvir's code 0, {int(m2.sum())} its -2, "
+            f"{int(ovf.sum())} overflowed; {dt:.3f} s; launches {counts}")
+        del sg, idx, vel_s, inputs, out, plain
+
+    B = 4096
+    cpu_grid = build_grid(pos, mass_u, device="cpu")
+    for sort in (False, True):
+        got, dt, counts = surface_counted(
+            "ragged", (), gather.ragged_ball_gather, grids["uniform"], level,
+            c[:B], r[:B], r[:B] * r[:B], K, S, sort=sort)
+        cr = torch.as_tensor(radii[:B])
+        want = gather.ragged_ball_gather(cpu_grid, level,
+                                         torch.as_tensor(centers[:B]), cr,
+                                         cr * cr, K, S, sort=sort)
+        for f, a, b in zip(got._fields, got, want):
+            assert_same_bits(f"surface ragged {f}", a.cpu(), b)
+        log(f"[surface] ragged_ball_gather ({want.n_in.shape[0]}, {K}) "
+            f"sort={sort}: cuda = "
+            f"cpu bit for bit (d2, idx, n_in, overflow); "
+            f"{int(want.n_in.sum())} hits, {int(want.overflow.sum())} "
+            f"overflowed; {dt:.3f} s; launches {counts}")
+    del cpu_grid
+
+    t0 = time.perf_counter()
+    om, z = np.meshgrid([0.1, 0.2, 0.3, 0.5, 0.9, 1.0],
+                        [0.0, 0.5, 1.0, 2.0, 3.0, 6.0])
+    worst = {}
+    for lam in (False, True):
+        host = np.vectorize(lambda o, zz: rhovir_over_rhobar(o, lam, zz))(
+            om, z)
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 5e-5)):
+            got = rhovir_over_rhobar_torch(om, lam, z, dtype=dtype,
+                                           device="cuda").cpu().numpy()
+            err = float(np.max(np.abs(got - host) / host))
+            if not err <= rtol or got.dtype != np.dtype(str(dtype)[6:]):
+                raise AssertionError(f"surface Delta_vir lambda={lam} "
+                                     f"{dtype}: rel err {err}")
+            worst[(lam, str(dtype)[6:])] = err
+    a = np.linspace(0.0, 2.0, 64)
+    b = a + np.linspace(0.5, 3.0, 64)
+    got = romberg_torch(lambda x: torch.exp(-x) * torch.sin(x), a, b,
+                        eps=1e-6, device="cuda").cpu().numpy()
+    host = np.array([dromberg_o(lambda x: np.exp(-x) * np.sin(x), x, y,
+                                1e-10) for x, y in zip(a, b)])
+    r_err = float(np.max(np.abs(got - host) / np.abs(host)))
+    if not r_err <= 1e-5:
+        raise AssertionError(f"surface romberg_torch: rel err {r_err}")
+    log(f"[surface] rhovir_over_rhobar_torch 6x6 (Omega0, z) on cuda against "
+        f"the host scalar, max rel err "
+        + ", ".join(f"lambda={k[0]} {k[1]} {v:.3g}" for k, v in worst.items())
+        + f"; romberg_torch 64 intervals rel err {r_err:.3g}; "
+        f"{time.perf_counter() - t0:.3f} s; launches none (plain torch)")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "so_tpu_torch")):
         sys.stderr.write("chip_smoke.py: run it from the root of a checkout "
@@ -2694,6 +2935,7 @@ def main():
     timed("--deltas", counted, "--deltas", phase_multi, box)
     timed("--mesh", phase_mesh, box)
     timed("--distributed", phase_distributed, box)
+    timed("surface", phase_surface, box)
     del box
     dense = timed("dense box", make_dense_box)
     timed("--survey", counted, "--survey", phase_survey, dense)

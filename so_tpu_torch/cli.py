@@ -64,8 +64,10 @@ WORLD_SIZE, RANK, LOCAL_RANK), reading only its snapshot segment.
 """
 
 
-def usage() -> "NoReturn":
-    sys.stderr.write(USAGE)
+def usage(out=None) -> "NoReturn":
+    """Write the usage text to ``out`` (sys.stderr as it is at the call)
+    and exit 1."""
+    (sys.stderr if out is None else out).write(USAGE)
     raise SystemExit(1)
 
 

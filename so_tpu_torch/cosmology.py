@@ -1,6 +1,6 @@
 """Cosmology: virial overdensity fits and the full csm library (copy of
-so_tpu/cosmology.py without its JAX form, so the port imports nothing of
-the JAX package).
+so_tpu/cosmology.py, so the port imports nothing of the JAX package; its
+batched JAX form is rhovir_over_rhobar_torch here).
 
 Two layers, mirroring the reference split:
 
@@ -22,7 +22,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from .numerics import dromberg_o
+import torch
+
+from .numerics import dromberg_o, tensor_device
 
 EPSCOSMO = 1e-7  # reference: cosmo.c:24
 
@@ -56,6 +58,32 @@ def rhovir_over_rhobar(omega0: float, lambda_opt: bool, z: float) -> float:
     etaf = math.acosh(2.0 / omega_f(omega0, 0.0, z) - 1.0)
     answer = 4.0 * math.pi ** 2 / (math.sinh(etaf) - etaf) ** 2
     return answer * (math.cosh(etaf) - 1.0) ** 3
+
+
+def rhovir_over_rhobar_torch(omega0, lambda_opt: bool, z, *,
+                             dtype=torch.float32, device=None):
+    """Batched Delta_vir(z) for multi-threshold catalogs, on tensors (so_tpu's
+    rhovir_over_rhobar_jax): the same fits as rhovir_over_rhobar, with
+    ``omega0``/``z`` scalars or arrays that broadcast, in ``dtype`` (f32,
+    JAX's default, unless asked) on ``device`` (numerics.tensor_device's
+    rule). ``lambda_opt`` selects the fit family, as the -L flag does."""
+    device = tensor_device(device, omega0, z)
+    omega0 = torch.as_tensor(omega0, dtype=dtype, device=device)
+    z = torch.as_tensor(z, dtype=dtype, device=device)
+    zp13 = (1.0 + z) ** 2 * (1.0 + z)
+    zp12 = (1.0 + z) ** 2
+    if lambda_opt:
+        lam = 1.0 - omega0
+        of = omega0 * zp13 / (omega0 * zp13 + (1.0 - omega0 - lam) * zp12
+                              + lam)
+        wf = 1.0 / of - 1.0
+        ans = 18.0 * math.pi ** 2 * (1.0 + 0.4093 * wf ** 0.9052)
+    else:
+        of = omega0 * zp13 / (omega0 * zp13 + (1.0 - omega0) * zp12)
+        etaf = torch.acosh(2.0 / of - 1.0)
+        ans = (4.0 * math.pi ** 2 / (torch.sinh(etaf) - etaf) ** 2
+               * (torch.cosh(etaf) - 1.0) ** 3)
+    return torch.where(omega0 == 1.0, torch.full_like(ans, 178.0), ans)
 
 
 def threshold_in_box_units(omega0: float, lambda_opt: bool, z: float,

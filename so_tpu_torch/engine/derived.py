@@ -77,7 +77,8 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
     if uniform_m is not None:
         cum, lad = _uniform_cum(uniform_m, K, n_in, valid)
     else:
-        cum = seq_cumsum(mass_s, n_in)  # C-order f32 (kd2.c:521, 543), K2
+        # C-order f32 (kd2.c:521, 543), K2
+        cum = seq_cumsum(mass_s, n_valid=n_in)
 
     def cum_at(counts, c):
         return torch.where(counts > 0, c[rows, torch.clamp(counts - 1, min=0)],
@@ -134,7 +135,8 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
                 bins.append(torch.where(sc > 0, lad[torch.clamp(sc - 1, min=0)],
                                         zero))
         else:
-            cumsp = seq_cumsum(torch.where(sel, mass_s, zero), n_in)
+            cumsp = seq_cumsum(torch.where(sel, mass_s, zero),
+                                n_valid=n_in)
             bins = [cum_at(cnt, cumsp) for cnt in bin_cnts]
         profs[sp] = torch.stack(bins, dim=1)
 
@@ -221,12 +223,16 @@ def ball_rounds(grid, centers: np.ndarray, fball: np.ndarray,
 
 
 def compute_derived(grid, centers: np.ndarray, rvir: np.ndarray,
-                    mvir: np.ndarray, eligible: np.ndarray,
-                    n_members: int = 8, species: tuple = (),
-                    grav: float = 1.0) -> DerivedResult:
+                    mvir: np.ndarray, j_interior: np.ndarray,
+                    eligible: np.ndarray, n_members: int = 8,
+                    species: tuple = (), grav: float = 1.0) -> DerivedResult:
     """Derived quantities for the eligible halos from a K1/K3 gather at
     2*Rvir (zeros elsewhere): the checkpoint-resume path, where member
-    lists come from the saved state and only this pass runs on the card."""
+    lists come from the saved state and only this pass runs on the card.
+
+    ``j_interior`` (the interior counts) is so_tpu's first-capacity hint
+    and is not read: ball_rounds sizes each ball from its exact footprint,
+    so no result depends on it."""
     G = centers.shape[0]
     out = DerivedResult.zeros(G, species)
     todo = np.nonzero(eligible)[0]

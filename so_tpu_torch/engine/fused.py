@@ -7,8 +7,10 @@ the j interior particles (kd2.c:823) and kdVcirc re-gathers at 2*Rvir
 ball, so ONE gather at 2*Rvir with (mass, meta, orig) channels yields both:
 the derived quantities (derived_from_sorted) and the member lists (the
 first j sorted rows of each halo, as file-order indices: the "orig"
-channel). vcm is computed on the host from the member rows
-(members.vcm_from_members, or an injected vcm_fn under --distributed).
+channel; those rows are the ball's hits at d2 <= d2cut, the solve's d2
+at row j - 1, and the mask reads both bounds). vcm is computed on the
+host from the member rows (members.vcm_from_members, or an injected
+vcm_fn under --distributed).
 
 Derived quantities are computed for every solved group; the pipeline
 zeroes the rows of groups slurped during their own tagging (kd2.c:884)
@@ -27,8 +29,8 @@ from .members import vcm_from_members
 
 
 def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
-                 n_members: int, species: tuple, centers, rvir, j, mvir,
-                 grav: float):
+                 n_members: int, species: tuple, centers, rvir, d2cut, j,
+                 mvir, grav: float):
     """One capacity tier. Returns (member original indices, concatenated
     halo-major in ascending distance; per-halo member counts; derived
     dict; overflow), all on the grid's device."""
@@ -50,24 +52,29 @@ def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
     der = derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, sg.n_in, rvir,
                               mvir, fball, n_members, species, grav,
                               uniform_m=um)
-    # interior members: the first j sorted rows — a PREFIX of each row, so
-    # a boolean-mask compaction keeps halo-major, ascending-distance order
+    # interior members: the first j sorted rows, all at d2 <= d2cut (the
+    # solve's d2 at row j - 1 lies inside its own Rvir < 2*Rvir) — a PREFIX
+    # of each row, so a boolean-mask compaction keeps halo-major,
+    # ascending-distance order
     slot = torch.arange(d2_s.shape[1], device=d2_s.device)[None, :]
-    interior = (slot < j[:, None]) & torch.isfinite(d2_s) & (orig >= 0)
+    interior = ((slot < j[:, None]) & (d2_s <= d2cut[:, None])
+                & (orig >= 0))
     counts = interior.sum(dim=1)
     return orig[interior], counts, der, sg.overflow
 
 
 def members_and_derived(grid: CellGrid, centers: np.ndarray,
-                        rvir: np.ndarray, j: np.ndarray, mvir: np.ndarray,
-                        host_mv, n_members: int = 8, species: tuple = (),
-                        grav: float = 1.0, vcm_fn=None, member_filter=None):
+                        rvir: np.ndarray, d2cut: np.ndarray, j: np.ndarray,
+                        mvir: np.ndarray, host_mv, n_members: int = 8,
+                        species: tuple = (), grav: float = 1.0, vcm_fn=None,
+                        member_filter=None):
     """One fused pass over the solved halos: (members, vcm, DerivedResult).
 
     Dispatches follow derived.ball_rounds (capacities from the exact
-    footprints of the 2*Rvir balls, x4 on overflow). ``host_mv`` is the
-    ``(vel, mass)`` pair of per-particle host arrays in original file
-    order.
+    footprints of the 2*Rvir balls, x4 on overflow). ``d2cut`` and ``j``
+    are the solve's: the members are the first j rows, at d2 <= d2cut.
+    ``host_mv`` is the per-particle m*v in original file order, a dense
+    (N, 3) f32 array or the ``(vel, mass)`` pair (members.member_mv_sums).
 
     ``vcm_fn(rows, counts, mvir_rows) -> (n, 3) f32`` takes the place of
     members.vcm_from_members over ``host_mv``, which is then not read (a
@@ -86,6 +93,7 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
         return out_members, vcm, derived
     centers = np.asarray(centers, np.float32)
     rvir = np.asarray(rvir, np.float32)
+    d2cut = np.asarray(d2cut, np.float32)
     j = np.asarray(j, np.int64)
     mvir = np.asarray(mvir, np.float32)
     grav = float(np.float32(grav))
@@ -96,7 +104,7 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
 
         mem, counts, der, ovf = _fused_stage(
             grid, level, K, S, n_members, species, dev_t(centers),
-            dev_t(rvir), dev_t(j), dev_t(mvir), grav)
+            dev_t(rvir), dev_t(d2cut), dev_t(j), dev_t(mvir), grav)
         ovf = ovf.cpu().numpy()
         counts = counts.cpu().numpy()
         rows64 = mem.cpu().numpy()
@@ -107,7 +115,7 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
             out_members[part[i]] = (pieces[i] if member_filter is None
                                     else member_filter(pieces[i]))
         # group mean velocity from the member rows (_VcmParticles)
-        vcm[part[ok]] = (vcm_from_members(*host_mv, rows64, counts,
+        vcm[part[ok]] = (vcm_from_members(host_mv, rows64, counts,
                                           mvir[part]) if vcm_fn is None
                          else vcm_fn(rows64, counts, mvir[part]))[ok]
         return ovf

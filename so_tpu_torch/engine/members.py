@@ -23,18 +23,22 @@ from ..ops.grid import CellGrid
 from .derived import ball_rounds
 
 
-def member_mv_sums(vel, mass, rows: np.ndarray,
-                   counts: np.ndarray) -> np.ndarray:
+def member_mv_sums(mvh, rows: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """(G, 3) f64 per-halo sequential sums of m*v over concatenated member
-    rows. ``vel`` (N, 3) and ``mass`` (N,) are per-particle host arrays;
-    the f32 product m*v is formed on member rows only (bit-identical: the
+    rows. ``mvh`` is the per-particle m*v on the host, a dense (N, 3) f32
+    array or the ``(vel, mass)`` pair; the pair's f32 product m*v is
+    formed on member rows only, bit-identical to the dense form (the
     elementwise multiply commutes with the gather)."""
     counts = np.asarray(counts, np.int64)
     sums = np.zeros((counts.shape[0], 3), np.float64)
     nz = counts > 0
     if nz.any():
-        mv_rows = (np.asarray(vel, np.float32)[rows]
-                   * np.asarray(mass, np.float32)[rows, None])
+        if isinstance(mvh, tuple):
+            vel, mass = mvh
+            mv_rows = (np.asarray(vel, np.float32)[rows]
+                       * np.asarray(mass, np.float32)[rows, None])
+        else:
+            mv_rows = np.asarray(mvh, np.float32)[rows]
         seg_starts = (np.cumsum(counts) - counts)[nz]
         sums[nz] = np.add.reduceat(mv_rows.astype(np.float64), seg_starts,
                                    axis=0)
@@ -49,12 +53,12 @@ def vcm_from_sums(sums: np.ndarray, counts: np.ndarray,
             ).astype(np.float32) * (np.asarray(counts, np.int64) > 0)[:, None]
 
 
-def vcm_from_members(vel, mass, rows: np.ndarray, counts: np.ndarray,
+def vcm_from_members(mvh, rows: np.ndarray, counts: np.ndarray,
                      mvir: np.ndarray) -> np.ndarray:
     """Group mean velocity from concatenated member rows (halo-major,
-    ascending distance within each halo): the f64 member sums over Mvir."""
-    return vcm_from_sums(member_mv_sums(vel, mass, rows, counts), counts,
-                         mvir)
+    ascending distance within each halo): the f64 member sums of ``mvh``
+    (member_mv_sums' dense m*v or ``(vel, mass)`` pair) over Mvir."""
+    return vcm_from_sums(member_mv_sums(mvh, rows, counts), counts, mvir)
 
 
 def _members_stage(grid, level: int, K: int, S: int, centers, cover, d2cut,
@@ -81,16 +85,19 @@ def extract_members(grid, centers: np.ndarray, d2cut: np.ndarray,
     footprints or, with ``cap_hint`` (SolveResult.kcap), the capacity that
     resolved the halo (at least 512), x4 on overflow. A parallel.mesh
     ShardedGrid is merged at the gather seam. ``host_mv`` is the
-    ``(vel, mass)`` pair of per-particle host arrays in file order; None
-    reads it from a CellGrid (a ShardedGrid needs it passed)."""
+    per-particle m*v in file order, a dense (N, 3) f32 array or the
+    ``(vel, mass)`` pair; None reads the pair from the grid (a ShardedGrid's
+    shards through parallel.mesh.host_mv_from_sharded, which refuses one
+    rank's part of a --distributed grid)."""
     G = centers.shape[0]
     out: list[np.ndarray | None] = [None] * G
     if G == 0:
         return out, np.zeros((0, 3), np.float32)
+    if host_mv is None and not isinstance(grid, CellGrid):
+        from ..parallel.mesh import host_mv_from_sharded
+
+        host_mv = host_mv_from_sharded(grid)
     if host_mv is None:
-        if not isinstance(grid, CellGrid):
-            raise ValueError("extract_members on a sharded grid needs "
-                             "host_mv")
         oi = grid.orig_idx.cpu().numpy()
         vel = np.empty((grid.n, 3), np.float32)
         mass = np.empty(grid.n, np.float32)
@@ -127,4 +134,4 @@ def extract_members(grid, centers: np.ndarray, d2cut: np.ndarray,
     counts = np.array([lst.size for lst in out], np.int64)
     rows = (np.concatenate(out) if counts.sum()
             else np.zeros(0, np.int64))
-    return out, vcm_from_members(*host_mv, rows, counts, mvir)
+    return out, vcm_from_members(host_mv, rows, counts, mvir)

@@ -61,7 +61,8 @@ def _multi_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
 
 def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
                      n_members: int = 8, k0_cap: int = 4096,
-                     survey: bool | None = None) -> MultiSolveResult:
+                     survey: bool | None = None,
+                     progress=None) -> MultiSolveResult:
     """Batched R_Delta for every (halo, threshold) pair, shared gathers.
 
     ``survey`` runs the sort-free -1/-2 pre-pass (solver.survey_pass)
@@ -69,7 +70,9 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     (catalogs of SURVEY_MIN_G+ halos classify a sample and go on only if
     enough of it resolves). The -2 rule is classified per threshold
     against one shared gather, and a halo skips the sorted rounds only
-    when every threshold resolved. Results are the same either way."""
+    when every threshold resolved. Results are the same either way.
+    ``progress(resolved, G)``, if given, is called after each round with
+    the count of halos resolved at every threshold."""
     thresholds = np.asarray(thresholds, np.float32)
     T = thresholds.shape[0]
     G = centers.shape[0]
@@ -226,5 +229,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
                     torch.as_tensor(radii[lo:lo + part.size], device=dev),
                     thresholds)
                 apply_block(part, *out, k_eff[lo:lo + part.size], K)
+        if progress is not None:
+            progress(int(resolved.all(axis=0).sum()), G)
     return MultiSolveResult(code=code, mvir=mvir, rvir=rvir, j=jout,
                             d2cut=d2cut, kcap=kcap, n_survey=n_survey)

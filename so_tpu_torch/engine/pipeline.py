@@ -241,9 +241,10 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
             # 2*Rvir (the interior is a sorted prefix of the kdVcirc ball;
             # kd2.c:511-514 vs 823)
             members_ok, vcm_ok, derived_all = members_and_derived(
-                grid, centers[ok], solve.rvir[ok], solve.j[ok],
-                solve.mvir[ok], host_mv=(None if vcm_fn is not None else
-                                         (particles.vel, particles.mass)),
+                grid, centers[ok], solve.rvir[ok], solve.d2cut[ok],
+                solve.j[ok], solve.mvir[ok],
+                host_mv=(None if vcm_fn is not None else
+                         (particles.vel, particles.mass)),
                 n_members=params.n_members, species=tuple(params.species),
                 grav=params.grav, vcm_fn=vcm_fn, member_filter=member_filter)
             members = [None] * catalog.n
@@ -269,7 +270,8 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
                                        tuple(params.species))
         else:
             derived = compute_derived(grid, centers, solve.rvir, solve.mvir,
-                                      eligible, n_members=params.n_members,
+                                      solve.j, eligible,
+                                      n_members=params.n_members,
                                       species=tuple(params.species),
                                       grav=params.grav)
 

@@ -46,7 +46,7 @@ import torch
 
 from ..ops.gather import min_image, unsorted_gather
 from ..ops.grid import CellGrid
-from ..ops.ieee import sqrt_rn
+from ..ops.ieee import cbrt_f32, sqrt_rn
 from ..ops.seqsum import seq_cumsum
 
 FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
@@ -146,7 +146,7 @@ def enclosed_density(d2_s, mass_s, n_in, uniform_m: float | None = None,
     if uniform_m is not None:
         cum, _ = _uniform_cum(uniform_m, K, n_in, slot < n_in[:, None], lad)
     else:
-        cum = seq_cumsum(mass_s, n_in)    # C-order f32 (kd2.c:807), K2
+        cum = seq_cumsum(mass_s, n_valid=n_in)  # C-order f32 (kd2.c:807)
     r3 = d2_s * sqrt_rn(d2_s)
     return cum, cum / (float(FOUR_THIRDS_PI) * r3)
 
@@ -177,6 +177,41 @@ def scan_verdict(d2_s, mass_s, n_in, cum, rho, thr: float, n_members: int,
     mvir = cum[rows, jstar] - m_at
     d2cut = d2_s[rows, jm1]
     return dict(found=found, jstar=jstar, mvir=mvir, d2cut=d2cut)
+
+
+def scan_sorted(d2_s, mass_s, vel_s, n_in, thr, n_members: int,
+                uniform_m: float | None = None, lad=None):
+    """so_tpu's density scan over distance-sorted hits, one threshold:
+    dict(found, jstar, mvir, rvir, d2cut, vcm) per halo, from
+    enclosed_density (K2 on general masses) and scan_verdict. ``mass_s`` is
+    +0.0 on invalid slots, or None on a uniform-mass grid (``uniform_m``;
+    ``lad`` as in _uniform_cum).
+
+    rvir is so_tpu's f32 cbrt(mvir / (4/3 pi thr)) (ops/ieee.cbrt_f32),
+    not the reference's bits (rvir_reference_bits, which the solve
+    writes). vcm is the mass-weighted mean velocity over the first jstar
+    slots of ``vel_s`` (B, K, 3), or zeros when ``vel_s`` is None; it needs
+    ``mass_s``."""
+    if vel_s is not None and mass_s is None:
+        raise ValueError("vcm needs per-slot masses; pass mass_s")
+    cum, rho = enclosed_density(d2_s, mass_s, n_in, uniform_m, lad)
+    out = scan_verdict(d2_s, mass_s, n_in, cum, rho, thr, n_members,
+                       uniform_m)
+    mvir = out["mvir"]
+    # so_tpu's FOUR_THIRDS_PI * thr is one f32 product. It divides as a
+    # tensor: torch on CUDA multiplies by the reciprocal of a Python
+    # scalar divisor, which is not the correctly rounded quotient
+    den = torch.tensor(FOUR_THIRDS_PI * np.float32(thr), device=mvir.device)
+    out["rvir"] = cbrt_f32(mvir / den)
+    B, K = d2_s.shape
+    if vel_s is not None:
+        slot = torch.arange(K, device=d2_s.device)[None, :]
+        w = torch.where(slot < out["jstar"][:, None], mass_s,
+                        torch.zeros((), device=d2_s.device))
+        out["vcm"] = (w[:, :, None] * vel_s).sum(dim=1) / mvir[:, None]
+    else:
+        out["vcm"] = torch.zeros((B, 3), device=d2_s.device)
+    return out
 
 
 def pack_block(n_in, overflow, outs):
@@ -346,7 +381,7 @@ def _classify_verdict(d2k, mk, n_in, thresholds, n_members: int):
     (nMembers-2, -1, and the next) defer: the full solve may order equal
     d2 differently."""
     B, kk = d2k.shape
-    cum = seq_cumsum(mk, n_in)          # mk is +0.0 past min(n_in, kk)
+    cum = seq_cumsum(mk, n_valid=n_in)          # mk is +0.0 past min(n_in, kk)
     rho = cum / (float(FOUR_THIRDS_PI) * (d2k * sqrt_rn(d2k)))
     slot = torch.arange(kk, device=d2k.device)[None, :]
     rho_next = torch.cat([rho[:, 1:], torch.full((B, 1), torch.inf,
@@ -467,15 +502,15 @@ def _dispatch_chunks(sel: np.ndarray, slots: int):
 
 
 def solve_rvir(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,
-               thr: float, n_members: int = 8,
-               k0_cap: int = 4096, survey: bool | None = None) -> SolveResult:
+               thr: float, n_members: int = 8, k0_cap: int = 4096,
+               progress=None, survey: bool | None = None) -> SolveResult:
     """Solve R_Delta for every halo (batched, staged capacity escalation):
     multi.solve_rvir_multi at the one threshold ``thr``, whose docstring
-    says what ``survey`` does."""
+    says what ``survey`` and ``progress`` do."""
     from .multi import solve_rvir_multi   # multi builds on this module
 
     r = solve_rvir_multi(grid, centers, rgtp, [thr], n_members, k0_cap,
-                         survey)
+                         survey, progress=progress)
     return SolveResult(code=r.code[0], mvir=r.mvir[0], rvir=r.rvir[0],
                        j=r.j[0], d2cut=r.d2cut[0],
                        vcm=np.zeros((centers.shape[0], 3), np.float32),

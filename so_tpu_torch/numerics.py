@@ -1,10 +1,12 @@
 """Numerics: Romberg integrator and the Numerical-Recipes index sort (copy
-of so_tpu/numerics.py without its JAX Romberg, so the port imports
-nothing of the JAX package).
+of so_tpu/numerics.py, so the port imports nothing of the JAX package;
+its batched JAX Romberg is romberg_torch here).
 
 Reference parity:
   - ``dromberg_o`` mirrors the open-interval midpoint Romberg ``dRombergO``
     (reference: romberg.c:16-65, MAXLEV 13), used by the cosmology module.
+  - ``romberg_torch`` is a batched tensor re-expression of the same rule
+    with a fixed depth and convergence masking (so_tpu's romberg_jax).
   - ``indexx`` reproduces the exact permutation of the NR ``indexx``
     quicksort-with-insertion (reference: nr.c:91-151), including its behavior
     on *tied keys*, because the reference processes halos in the order this
@@ -17,6 +19,7 @@ Reference parity:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MAXLEV = 13
 
@@ -61,6 +64,67 @@ def dromberg_o(func, a: float, b: float, eps: float) -> float:
 
 _NR_M = 7
 _NR_NSTACK = 50
+
+
+def tensor_device(device, *xs) -> torch.device:
+    """``device`` if given, else that of the first tensor among ``xs``,
+    else the card: host values go to "cuda" unless the CPU is asked for."""
+    if device is not None:
+        return torch.device(device)
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return torch.device("cuda")
+
+
+def romberg_torch(func, a, b, eps: float = 1e-7, max_lev: int = 9, *,
+                  dtype=torch.float32, device=None):
+    """Batched Romberg on tensors: dromberg_o's midpoint/extrapolation rule
+    (so_tpu's romberg_jax). ``func`` is an elementwise torch function;
+    ``a``/``b`` broadcast. Every level runs with a convergence mask, and
+    each element keeps its first converged extrapolant, which is what the
+    early-exiting reference loop (romberg.c:28-60) returns. Depth 9 (3^8
+    midpoint samples at the deepest level) covers the cosmology
+    integrands; computed in ``dtype`` (f32, JAX's default, unless asked)
+    on ``device`` (tensor_device's rule).
+    """
+    device = tensor_device(device, a, b)
+    a = torch.as_tensor(a, dtype=dtype, device=device)
+    b = torch.as_tensor(b, dtype=dtype, device=device)
+    a, b = torch.broadcast_tensors(a, b)
+
+    tlk = [torch.zeros_like(a)] * (max_lev + 1)
+    tlk[0] = (b - a) * func(0.5 * (b + a))
+    tllnew = tlk[0]
+    tll = torch.full_like(a, torch.finfo(torch.float32).max)
+    result = tllnew
+    converged = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+
+    nsamples = 1
+    for n in range(1, max_lev):
+        newly = torch.abs((tllnew - tll) / tllnew) <= eps
+        result = torch.where(newly & ~converged, tllnew, result)
+        converged = converged | newly
+
+        nsamples *= 3
+        deltax = (b - a) / nsamples
+        tlktmp = tlk[0]
+        i = torch.arange(nsamples // 3, dtype=dtype, device=a.device)
+        x1 = a[..., None] + (3 * i + 0.5) * deltax[..., None]
+        x2 = a[..., None] + (3 * i + 2.5) * deltax[..., None]
+        tlk[0] = tlk[0] / 3.0 + deltax * (func(x1).sum(-1) + func(x2).sum(-1))
+        for i2 in range(n):
+            tlknew = ((9.0 ** (i2 + 1) * tlk[i2] - tlktmp)
+                      / (9.0 ** (i2 + 1) - 1.0))
+            tlktmp = tlk[i2 + 1]
+            tlk[i2 + 1] = tlknew
+        tll = tllnew
+        tllnew = tlk[n]
+
+    newly = torch.abs((tllnew - tll) / tllnew) <= eps
+    result = torch.where(newly & ~converged, tllnew, result)
+    converged = converged | newly
+    return torch.where(converged, result, tllnew)
 
 
 def _indexx_nr(arr1: np.ndarray) -> np.ndarray:

@@ -16,6 +16,11 @@
 Capacity K and cube side S are per-dispatch values; the host escalates K
 when a ball overflows, mirroring the reference's nnList regrow.
 
+ragged_ball_gather is so_tpu's payload-free gather, plain torch on the
+grid's device: a dense slot index from the unaligned cell ranges, the
+positions read at it and d2 in torch ops. No kernel of the port serves it
+and no engine path calls it.
+
 The engine gathers only through slab_gather, unsorted_gather and
 footprint. A grid that is not a CellGrid (parallel.ShardedGrid) serves
 them itself: each particle shard gathers at capacity K and the shards'
@@ -141,6 +146,59 @@ def cell_ranges(grid: CellGrid, level: int, centers, radii, r2_mask, S: int,
     q = torch.cumsum(foot, dim=1) - foot
     total = q[:, -1] + foot[:, -1]
     return st, cnt, q, total
+
+
+class GatherResult(NamedTuple):
+    d2: torch.Tensor        # (B, K) f32, ascending if sort=True; +inf pad
+    idx: torch.Tensor       # (B, K) i32 rows of the grid's sorted particles
+    n_in: torch.Tensor      # (B,) i32 hits with d2 <= r2_mask
+    overflow: torch.Tensor  # (B,) bool candidate count exceeded K
+
+
+def ragged_ball_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
+                       K: int, S: int, sort: bool = True) -> GatherResult:
+    """Every particle with min-image d2 <= r2_mask about each center, in
+    K dense slots (so_tpu/ops/gather.py's ragged_ball_gather, op for op).
+
+    The candidates are the cell ranges of cell_ranges with ``align`` 1, laid
+    end to end: ``overflow`` is their total > K, and a slot past the total
+    reads row n - 1 and is masked. ``radii`` sets the cube's coverage
+    (radii^2 >= r2_mask); ``r2_mask`` is the inclusive acceptance bound.
+    d2 is dx*dx + dy*dy + dz*dz after min_image, each op rounded once.
+    ``sort`` orders each row by d2 with a stable sort over the slots (tie
+    order is free, docs/PARITY.md #3); unsorted, idx is so_tpu's at every
+    slot."""
+    n = grid.n
+    B = centers.shape[0]
+    dev = centers.device
+    st, cnt, q, total = cell_ranges(grid, level, centers, radii, r2_mask, S)
+    overflow = total > K
+
+    # ragged -> dense: the piecewise-constant jump st - q of each cell,
+    # its differences scattered at the cells' output offsets and summed;
+    # offsets at or past K land in a spill column that is cut off (the
+    # JAX scatter's mode="drop")
+    jumps = st - q
+    dif = torch.cat([jumps[:, :1], jumps[:, 1:] - jumps[:, :-1]], dim=1)
+    acc = torch.zeros((B, K + 1), dtype=torch.int64, device=dev)
+    acc.scatter_add_(1, torch.clamp(q, max=K), dif)
+    slot = torch.arange(K, dtype=torch.int64, device=dev)[None, :]
+    gidx = torch.cumsum(acc[:, :K], dim=1) + slot
+    slot_ok = slot < torch.clamp(total, max=K)[:, None]
+    gidx = torch.clamp(gidx, 0, n - 1)
+
+    p = grid.pos_a()[gidx]                              # (B, K, 3)
+    d = min_image(centers[:, None, :], p, grid.period[None, None, :])
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    valid = slot_ok & (d2 <= r2_mask[:, None])
+    n_in = valid.sum(dim=1, dtype=torch.int32)
+
+    key = torch.where(valid, d2, torch.full_like(d2, torch.inf))
+    if sort:
+        key, order = torch.sort(key, dim=1, stable=True)
+        gidx = torch.gather(gidx, 1, order)
+    return GatherResult(d2=key, idx=gidx.to(torch.int32), n_in=n_in,
+                        overflow=overflow)
 
 
 def _slotted(grid: CellGrid, ranges, centers, r2_mask, K: int, chans: tuple,

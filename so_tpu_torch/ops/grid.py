@@ -26,6 +26,10 @@ CHUNK = 256
 TARGET_OCCUPANCY = 24   # mean particles per finest cell (choose_m)
 M_MAX = 9               # finest level choose_m picks
 PAYLOAD_ALIGN = 32      # payload row stride: a multiple of 32 floats
+# Morton code of a padding row (build_grid's ``valid`` False): at least the
+# cell count at every level (1<<30 >> 3g >= 8^(m-g) for m <= 10), so the
+# rows sort to the tail and no cell range at any level reaches them
+SENTINEL_CODE = 1 << 30
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -232,7 +236,7 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     if valid is not None:
         code = torch.where(torch.as_tensor(np.asarray(valid, bool),
                                            device=device),
-                           code, 1 << (3 * m))
+                           code, SENTINEL_CODE)
     perm = torch.argsort(code, stable=True)
     starts = _level_starts(code[perm], m)
     soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],

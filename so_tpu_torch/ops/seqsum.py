@@ -6,11 +6,11 @@ a tree- or f64-associated cumsum differs in the last ulp and flips
 half-mass-radius indices. ``seq_cumsum`` is the wrapper: a CUDA tensor
 launches csrc/seqsum.cu, a CPU tensor runs ``seq_cumsum_plain``.
 
-``n_valid`` (optional, one count per row) makes the function the serial
-cumsum of ``where(slot < n_valid, x, +0.0)``. Every caller's rows are
-+0.0 past their in-ball count, and adding +0.0 leaves a serial sum
-unchanged, so passing the count changes no bit; the kernel then stops
-each chain at the count and reads nothing past it.
+``n_valid`` (optional, one count per row, passed by keyword) makes the
+function the serial cumsum of ``where(slot < n_valid, x, +0.0)``. Every
+caller's rows are +0.0 past their in-ball count, and adding +0.0 leaves
+a serial sum unchanged, so passing the count changes no bit; the kernel
+then stops each chain at the count and reads nothing past it.
 """
 
 from __future__ import annotations
@@ -101,13 +101,18 @@ def _seq_cumsum_cuda(x: torch.Tensor, n_valid):
     return y
 
 
-def seq_cumsum(x: torch.Tensor, n_valid=None) -> torch.Tensor:
-    """Left-associated f32 cumsum along dim 1 of a (B, K) f32 tensor, on
-    the tensor's device (kernel on CUDA, plain version on the CPU).
-    ``n_valid``: optional (B,) integer tensor on the same device; slots at
-    or past it read as +0.0."""
+def seq_cumsum(x: torch.Tensor, axis: int = 1, n_valid=None) -> torch.Tensor:
+    """Left-associated f32 cumsum along ``axis`` of a 2-D f32 tensor, on
+    the tensor's device (kernel on CUDA, plain version on the CPU). The
+    kernel is row-wise, so axis 0 runs it on the transpose. ``n_valid``:
+    optional integer tensor on the same device, one count per line along
+    ``axis``; slots at or past it read as +0.0."""
     if x.dtype != torch.float32 or x.dim() != 2:
-        raise ValueError("seq_cumsum takes a (B, K) float32 tensor")
+        raise ValueError("seq_cumsum takes a 2-D float32 tensor")
+    if axis not in (0, 1, -1, -2):
+        raise ValueError(f"no axis {axis} in a 2-D tensor")
+    if axis % 2 == 0:
+        return seq_cumsum(x.T, 1, n_valid).T
     if n_valid is not None and (
             n_valid.shape != (x.shape[0],) or n_valid.device != x.device
             or n_valid.dtype.is_floating_point or n_valid.dtype == torch.bool):

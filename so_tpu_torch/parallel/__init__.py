@@ -30,6 +30,7 @@ from .mesh import (  # noqa: F401
     Mesh,
     ShardedGrid,
     build_sharded_grid,
+    extract_members_sharded,
     make_mesh,
     recenter_most_bound_sharded,
     run_so_multi_sharded,

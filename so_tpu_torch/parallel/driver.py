@@ -234,22 +234,23 @@ def write_array_file_segments(path: str, seg_values: np.ndarray,
     transport.barrier()
 
 
-def dist_vcm_fn(vel_seg: np.ndarray, mass_seg: np.ndarray, start: int,
-                transport=None):
+def dist_vcm_fn(mv_seg, start: int, transport=None):
     """members_and_derived's vcm_fn: per-segment member sums
     (engine.members.member_mv_sums over the rank's rows of each list, in
-    list order) added over ranks in rank order, over Mvir."""
+    list order) added over ranks in rank order, over Mvir. ``mv_seg`` is
+    the segment's m*v, a dense (count, 3) f32 array or the ``(vel, mass)``
+    pair."""
     from ..engine.members import member_mv_sums, vcm_from_sums
 
     if transport is None:
         transport = TorchTransport()
-    count = np.shape(mass_seg)[0]
+    count = np.shape(mv_seg[1] if isinstance(mv_seg, tuple) else mv_seg)[0]
 
     def vcm_fn(rows, counts, mvir_rows):
         counts = np.asarray(counts, np.int64)
         seg_id = np.repeat(np.arange(counts.size), counts)
         sel = (rows >= start) & (rows < start + count)
-        partial = member_mv_sums(vel_seg, mass_seg, rows[sel] - start,
+        partial = member_mv_sums(mv_seg, rows[sel] - start,
                                  np.bincount(seg_id[sel],
                                              minlength=counts.size))
         sums = transport.process_allgather((partial,))[0].sum(axis=0)
@@ -296,15 +297,18 @@ def dist_stats_fn(mass_seg: np.ndarray, start: int, transport=None):
     return stats_fn
 
 
-def recenter_most_bound_distributed(sgrid, centers, rgtp,
+def recenter_most_bound_distributed(mesh, sgrid, centers, rgtp,
                                     k0_cap: int = 4096):
     """-pot across ranks: engine.recenter.recenter_most_bound on a rank's
-    grid (built with phi); each shard reads its candidates' positions and
-    the argmin runs over the rows merged over every rank."""
+    grid (built with phi) over its local ``mesh``; each shard reads its
+    candidates' positions and the argmin runs over the rows merged over
+    every rank."""
     from ..engine.recenter import recenter_most_bound
 
     if sgrid.comm is None:
         raise ValueError("not a --distributed grid")
+    if sgrid.mesh != mesh:
+        raise ValueError("the sharded grid was built on another mesh")
     return recenter_most_bound(sgrid, centers, rgtp, k0_cap=k0_cap)
 
 
@@ -353,14 +357,15 @@ def _dist_setup(snapshot_path: str, catalog, params, standard: bool,
     rgtp = np.asarray(catalog.rgtp, np.float32)
     if params.b_pot:
         with timer.phase("recenter (-pot)"):
-            centers = recenter_most_bound_distributed(sgrid, centers, rgtp)
+            centers = recenter_most_bound_distributed(mesh, sgrid, centers,
+                                                      rgtp)
             catalog.pos = centers
     return pset, sgrid, centers, rgtp, start, count, n_global
 
 
 def _hooks(pset, start, count, n_global, transport) -> dict:
     """_post_solve's arguments for a rank that holds one segment."""
-    return dict(vcm_fn=dist_vcm_fn(pset.vel, pset.mass, start, transport),
+    return dict(vcm_fn=dist_vcm_fn((pset.vel, pset.mass), start, transport),
                 n_particles=n_global,
                 stats_fn=dist_stats_fn(pset.mass, start, transport),
                 conflict_fn=dist_conflict_fn(start, count, transport),

@@ -362,6 +362,40 @@ def recenter_most_bound_sharded(mesh: Mesh, sgrid: ShardedGrid, centers,
     return recenter_most_bound(sgrid, centers, rgtp, k0_cap=k0_cap)
 
 
+def host_mv_from_sharded(sgrid: ShardedGrid):
+    """The ``(vel, mass)`` pair of host arrays in original file order,
+    rebuilt from the shards (one fetch each): every shard's real rows are
+    scattered to their file indices; padding rows (orig_idx -1) are
+    dropped. A rank's part of a --distributed grid holds only its own
+    rows, so it is refused: pass host_mv instead."""
+    if sgrid.comm is not None:
+        raise ValueError("a rank's part of a --distributed grid holds only "
+                         "its own rows: pass host_mv")
+    shards = sgrid.cells[0]
+    oi = [g.orig_idx.cpu().numpy() for g in shards]
+    n = sum(int((o >= 0).sum()) for o in oi)
+    vel = np.zeros((n, 3), np.float32)
+    mass = np.zeros(n, np.float32)
+    for g, o in zip(shards, oi):
+        real = o >= 0
+        vel[o[real]] = g.vel_a().cpu().numpy()[real]
+        mass[o[real]] = g.mass_a().cpu().numpy()[real]
+    return vel, mass
+
+
+def extract_members_sharded(mesh: Mesh, sgrid: ShardedGrid, centers, d2cut,
+                            j, mvir, host_mv=None, cap_hint=None):
+    """engine.members.extract_members on a sharded grid: the sorted gather
+    at each d2cut merges the shards' rows. ``host_mv`` (the file-order
+    m*v, dense or the ``(vel, mass)`` pair) feeds the vcm; None rebuilds
+    it from the shards (host_mv_from_sharded)."""
+    from ..engine.members import extract_members
+
+    _check(mesh, sgrid)
+    return extract_members(sgrid, centers, d2cut, j, mvir, cap_hint=cap_hint,
+                           host_mv=host_mv)
+
+
 def run_so_sharded(particles, catalog, params, mesh: Mesh):
     """engine.pipeline.run_so with its grid sharded over ``mesh``, whose
     devices the run uses (``params.device`` is not read). No checkpoint:

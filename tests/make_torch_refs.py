@@ -21,8 +21,10 @@ lines give the largest capacity K it dispatched:
 <box>.npz holds chip_smoke.run_record of the run (zoom: chip_smoke.
 cli_record of the CLI's files); manifest.json the commit, and for each
 box the command that wrote it, its seconds, its inputs' sha256, its
-largest K and any cut of scale (``reduced``). ``--out DIR --box NAME``
-writes one box elsewhere; tests call ``write_box`` at a reduced size.
+largest K and any cut of scale (``reduced``), and the sha256 of so_tpu's
+sources (so_tpu_sources_sha256), which a CPU test holds the tree to.
+``--out DIR --box NAME`` writes one box elsewhere; tests call
+``write_box`` at a reduced size.
 """
 
 from __future__ import annotations
@@ -48,6 +50,29 @@ import chip_smoke  # noqa: E402
 
 BOXES = ("standard_uniform", "standard_species", "giant_general",
          "giant_uniform", "zoom")
+
+
+def so_tpu_sources_sha256(root: str = ROOT) -> str:
+    """One sha256 over so_tpu's sources, so_tpu/**/*.py and
+    so_tpu/native/*.c, in the order of their sorted paths: for each file
+    its path relative to ``root`` (POSIX form), a NUL, its byte count as
+    8 little-endian bytes, then its bytes. The manifest records it, and
+    tests/test_torch_parity_refs.py fails when the tree's differs."""
+    import glob
+    import hashlib
+
+    pkg = os.path.join(root, "so_tpu")
+    paths = (glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)
+             + glob.glob(os.path.join(pkg, "native", "*.c")))
+    rels = sorted(os.path.relpath(p, root).replace(os.sep, "/")
+                  for p in paths)
+    h = hashlib.sha256()
+    for rel in rels:
+        with open(os.path.join(root, rel), "rb") as f:
+            data = f.read()
+        h.update(rel.encode() + b"\0" + len(data).to_bytes(8, "little"))
+        h.update(data)
+    return h.hexdigest()
 
 
 def so_tpu_inputs(ps, catalog):
@@ -182,7 +207,8 @@ def main(argv=None):
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                             capture_output=True, text=True).stdout.strip()
     manifest.update(so_tpu_commit=commit or None, jax=jax.__version__,
-                    platform=jax.devices()[0].platform)
+                    platform=jax.devices()[0].platform,
+                    so_tpu_sources_sha256=so_tpu_sources_sha256())
     command = "python tests/make_torch_refs.py" + "".join(
         f" --box {b}" for b in a.box or ())
     for name in a.box or BOXES:

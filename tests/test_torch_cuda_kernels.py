@@ -387,7 +387,7 @@ def _k2_check(x, x_np, cases, tag):
                     mp.setattr(seqsum, "rows_per_block",
                                lambda B, K, n_sm, rows=rows: rows)
                 n0 = seqsum.launches
-                y = seqsum.seq_cumsum(x, tnv)
+                y = seqsum.seq_cumsum(x, n_valid=tnv)
                 torch.cuda.synchronize()
             assert seqsum.launches == n0 + 1
             assert seqsum.rows_per_block is pick
@@ -791,6 +791,115 @@ def test_extract_members_cuda_matches_cpu(dev, monkeypatch):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
         assert [g.size for g in got] == s.j[ok].tolist()
+
+
+def test_extract_members_sharded_cuda_matches_cpu(dev, monkeypatch):
+    """parallel.extract_members_sharded on a 1x2 mesh of the card (K1's
+    sorted form per shard), then with gather.PIECE_K_MIN at 512 (K3 and
+    sort_rows): member lists and vcm equal the same call on a 1x2 CPU mesh
+    and the CellGrid's extract_members on the card; host_mv is rebuilt
+    from the shards."""
+    from so_tpu_torch.engine import extract_members, solve_rvir
+    from so_tpu_torch.ops import gather, piece_gather
+    from so_tpu_torch.parallel import (build_sharded_grid,
+                                       extract_members_sharded, make_mesh)
+
+    ps, cat = _pipeline_box()
+    c = cat()
+    s = solve_rvir(build_grid(ps.pos, ps.mass, vel=ps.vel, device="cpu"),
+                   c.pos, c.rgtp, 178.0)
+    ok = s.code == 0
+    args = (c.pos[ok], s.d2cut[ok], s.j[ok], s.mvir[ok])
+    meshes = {d: make_mesh(1, 2, devices=[torch.device(d)] * 2)
+              for d in ("cuda", "cpu")}
+    sgrids = {d: build_sharded_grid(ps.pos, ps.mass, vel=ps.vel, mesh=m)
+              for d, m in meshes.items()}
+    single = build_grid(ps.pos, ps.mass, vel=ps.vel, device=dev)
+    for piece_k_min in (gather.PIECE_K_MIN, 512):
+        monkeypatch.setattr(gather, "PIECE_K_MIN", piece_k_min)
+        k1, k3 = slab_gather.sorted_launches, piece_gather.launches
+        got, gv = extract_members_sharded(meshes["cuda"], sgrids["cuda"],
+                                          *args)
+        if piece_k_min == 512:
+            assert piece_gather.launches > k3
+        else:
+            assert slab_gather.sorted_launches > k1
+        for want, wv in (extract_members_sharded(meshes["cpu"],
+                                                 sgrids["cpu"], *args),
+                         extract_members(single, *args)):
+            assert gv.tobytes() == wv.tobytes()
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        assert [g.size for g in got] == s.j[ok].tolist()
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_ragged_ball_gather_cuda_matches_cpu(dev, sort):
+    """ops.gather.ragged_ball_gather (plain torch, no kernel) on the card
+    equals the CPU bit for bit: d2, idx, n_in and overflow, with some
+    halos overflowing their 2048 slots."""
+    from so_tpu_torch.ops.gather import ragged_ball_gather
+
+    rng, pos, mass, vel, ptype, mark = _box(3, 40000)
+    B, K, S, level = 256, 2048, 5, 1
+    centers = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
+    centers[:8] = 0.0
+    radii = rng.uniform(0.03, 0.12, B).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        grid = build_grid(pos, mass, m=4, device=d)
+        c, r = (torch.as_tensor(a, device=d) for a in (centers, radii))
+        out[d.type] = ragged_ball_gather(grid, level, c, r, r * r, K, S,
+                                         sort=sort)
+    g, w = out["cuda"], out["cpu"]
+    assert w.overflow.any() and not w.overflow.all()
+    for a, b in zip(g, w):
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["general", "uniform"])
+def test_scan_sorted_cuda_matches_cpu(dev, uniform):
+    """engine.solver.scan_sorted on the card (K2 on general masses) equals
+    the CPU's plain version bit for bit in found, jstar, mvir, rvir and
+    d2cut; vcm within the f32 bound of two sums of its n = jstar terms in
+    other orders, (n + 2) 2^-23 sum|m v| / Mvir (the card sums in another
+    order)."""
+    from so_tpu_torch.engine.solver import scan_sorted
+    from so_tpu_torch.ops.gather import slab_gather as gather_sorted
+
+    rng, pos, mass, vel, ptype, mark = _box(5, 40000)
+    mass = (np.full_like(mass, 1.0) if uniform else mass) / np.float32(
+        mass.size)                          # mean density 1
+    B, K, S, level = 512, 4096, 5, 1
+    centers = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
+    centers[:16] = 0.0
+    radii = rng.uniform(0.03, 0.08, B).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        grid = build_grid(pos, mass, vel=vel, m=4, device=d)
+        c, r = (torch.as_tensor(a, device=d) for a in (centers, radii))
+        sg = gather_sorted(grid, level, c, r, r * r, K, S, ("mass", "idx"))
+        idx = sg.channels[1]
+        vel_s = torch.where((idx >= 0)[..., None],
+                            grid.vel_a()[idx.clamp(min=0).long()], 0.0)
+        n0 = seqsum.launches
+        out[d.type] = scan_sorted(sg.d2, sg.channels[0], vel_s, sg.n_in,
+                                  178.0, 8, uniform_m=grid.uniform_mass)
+        mass_s = sg.channels[0]
+        if d.type == "cuda":
+            assert (seqsum.launches > n0) == (not uniform)
+    g, w = out["cuda"], out["cpu"]
+    found = w["found"].numpy()
+    assert found.any()
+    for f in ("found", "jstar", "mvir", "rvir", "d2cut"):
+        assert g[f].cpu().numpy().tobytes() == w[f].numpy().tobytes(), f
+    n = w["jstar"][:, None].double()
+    slot = torch.arange(mass_s.shape[1])[None, :]
+    absum = (torch.where(slot < n, mass_s.double(), 0.0)[:, :, None]
+             * vel_s.double().abs()).sum(dim=1)
+    bound = ((n + 2) * 2.0 ** -23 * absum / w["mvir"][:, None]).numpy()
+    diff = np.abs(g["vcm"].cpu().numpy() - w["vcm"].numpy())
+    assert (diff[found] <= bound[found]).all()
 
 
 def test_whole_box_route_cuda_matches_cpu(dev, monkeypatch):

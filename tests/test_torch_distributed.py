@@ -266,7 +266,8 @@ def test_distributed_engine(data, W, P, monkeypatch):
         m = multi.solve_rvir_multi(grid, centers, rgtp, thresholds,
                                    survey=True)
         f = members_and_derived(grid, centers[ok], solved.rvir[ok],
-                                solved.j[ok], solved.mvir[ok],
+                                solved.d2cut[ok], solved.j[ok],
+                                solved.mvir[ok],
                                 host_mv=(d["vel"], d["mass"]),
                                 species=species)
         return s, m, f, recenter(grid, centers, rgtp)
@@ -274,8 +275,9 @@ def test_distributed_engine(data, W, P, monkeypatch):
     want = engine(reference(d, W, P))
     assert_same(want[0], solved, SOLVE_FIELDS)
     assert want[0].kcap.max() > 256 and want[1].n_survey > 0 and k3
-    got = on_ranks(W, lambda tr: engine(segment_grid(d, P, tr),
-                                        recenter_most_bound_distributed))
+    got = on_ranks(W, lambda tr: engine(
+        segment_grid(d, P, tr),
+        lambda g, c, r: recenter_most_bound_distributed(g.mesh, g, c, r)))
     for s, m, f, rc in got:
         assert_same(s, want[0], SOLVE_FIELDS + ("kcap", "n_survey"))
         assert_same(m, want[1], SOLVE_FIELDS + ("kcap", "n_survey"))

@@ -71,8 +71,8 @@ def test_chunked_probe_derived_outputs(solved, monkeypatch):
     species = (DARK, GAS)
 
     def run():
-        return derived.compute_derived(grid, centers, s.rvir, s.mvir, ok,
-                                       species=species)
+        return derived.compute_derived(grid, centers, s.rvir, s.mvir, s.j,
+                                       ok, species=species)
 
     want = run()
     monkeypatch.setattr(derived, "FOOTPRINT_PAIRS", 5)    # one halo a call

@@ -153,3 +153,51 @@ def test_slab_overflow_flag(grids):
     big = torch.as_tensor([0.45])
     got = tg.slab_gather(pgrid, 1, z, big, big * big, 256, 5)
     assert bool(got.overflow[0])
+
+
+@pytest.mark.parametrize("K", [4096, 256], ids=["K4096", "K256_overflows"])
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_ragged_ball_gather_matches_so_tpu(grids, sort, K):
+    """ragged_ball_gather against so_tpu's: n_in and overflow exactly (at
+    K = 256 some halos overflow); unsorted, idx at every slot and d2 at
+    every slot the port's per-op form of its own row, so_tpu's the fused
+    form (XLA:CPU's FMA) or the same bits; sorted, each halo's in-ball
+    (d2, idx) pairs as sets, the port's rows ascending."""
+    jgrid, pgrid, rng = grids
+    B, S, level = 16, 5, 1
+    centers, radii = _balls(rng, B)
+    jc, jr = jnp.asarray(centers), jnp.asarray(radii)
+    want = jg.ragged_ball_gather(jgrid, level, jc, jr, jr * jr, K, S,
+                                 sort=sort)
+    tc, tr = torch.as_tensor(centers), torch.as_tensor(radii)
+    got = tg.ragged_ball_gather(pgrid, level, tc, tr, tr * tr, K, S,
+                                sort=sort)
+    assert got.idx.dtype == torch.int32 and got.n_in.dtype == torch.int32
+    np.testing.assert_array_equal(got.n_in.numpy(), np.asarray(want.n_in))
+    np.testing.assert_array_equal(got.overflow.numpy(),
+                                  np.asarray(want.overflow))
+    assert got.overflow.any() == (K == 256)
+    pos = pgrid.pos_a().numpy()
+    gi, wi = got.idx.numpy(), np.asarray(want.idx)
+    gd, wd = got.d2.numpy(), np.asarray(want.d2)
+    for b in range(B):
+        # the period is 1, so p*round((c-x)/p) is round(c-x) exactly
+        dd = (centers[b] - np.round(centers[b] - pos[gi[b]])) - pos[gi[b]]
+        x, y, z = dd[:, 0], dd[:, 1], dd[:, 2]
+        per_op = x * x + y * y + z * z
+        fused = fma32(z, z, fma32(x, x, y * y))
+        live = np.isfinite(gd[b])
+        assert live.sum() == got.n_in[b]
+        np.testing.assert_array_equal(gd[b][live].view(np.int32),
+                                      per_op[live].view(np.int32))
+        if sort:
+            assert (gd[b][1:] >= gd[b][:-1]).all()
+            wl = np.isfinite(wd[b])
+            assert sorted(gi[b][live]) == sorted(wi[b][wl])
+            continue
+        np.testing.assert_array_equal(gi[b], wi[b])
+        np.testing.assert_array_equal(live, np.isfinite(wd[b]))
+        wbits, fbits = wd[b][live].view(np.int32), fused[live].view(np.int32)
+        np.testing.assert_array_equal(wbits, fbits)
+        same = per_op[live] == fused[live]
+        np.testing.assert_array_equal(gd[b][live][same], wd[b][live][same])

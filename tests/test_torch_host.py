@@ -149,6 +149,105 @@ def test_cosmology_agrees():
                 == jcos.csm_comove_kick_fac(j, 0.1, 0.02))
 
 
+# so_tpu's own grid and tolerance for its batched form against the host
+# scalar (tests/test_cosmology.py): both are f32, whose acosh/sinh/cosh
+# differ by libm, so the two batched forms are held to each other there
+DELTA_GRID = (np.array([0.2, 0.3, 0.7, 1.0]), np.array([0.0, 0.5, 2.0, 1.0]))
+
+
+@pytest.mark.parametrize("lam", [False, True], ids=["open", "lambda"])
+def test_batched_delta_vir_matches_so_tpu(lam):
+    """rhovir_over_rhobar_torch: f32 like so_tpu's rhovir_over_rhobar_jax
+    and within its rtol 2e-6 of it and of the host scalar on so_tpu's
+    grid; in f64, the host scalar to 1e-12 over a wider grid (1 exactly
+    178)."""
+    import torch
+
+    oms, zs = DELTA_GRID
+    want = np.asarray(jcos.rhovir_over_rhobar_jax(oms, lam, zs))
+    got = tcos.rhovir_over_rhobar_torch(oms, lam, zs, device="cpu")
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6)
+    host = [jcos.rhovir_over_rhobar(float(o), lam, float(z))
+            for o, z in zip(oms, zs)]
+    np.testing.assert_allclose(got.numpy(), host, rtol=2e-6)
+    om, z = np.meshgrid([0.1, 0.25, 0.5, 0.9, 1.0], [0.0, 0.5, 3.0, 9.0])
+    got = tcos.rhovir_over_rhobar_torch(om, lam, z, dtype=torch.float64,
+                                        device="cpu")
+    host = np.vectorize(lambda o, zz: tcos.rhovir_over_rhobar(o, lam, zz))(
+        om, z)
+    np.testing.assert_allclose(got.numpy(), host, rtol=1e-12)
+    assert (got.numpy()[om == 1.0] == 178.0).all()
+    # host values go to the card unless the CPU is asked for; a tensor
+    # argument keeps its device
+    assert tnum.tensor_device(None, 0.3, np.ones(2)).type == "cuda"
+    assert tcos.rhovir_over_rhobar_torch(torch.tensor([0.3]), lam,
+                                         0.0).device.type == "cpu"
+
+
+def test_romberg_torch_matches_so_tpu():
+    """romberg_torch: so_tpu's romberg_jax rule, batched over (a, b), f32;
+    each element equal to romberg_jax's to rtol 1e-6 (f32 sums in another
+    order) and to the host dromberg_o to so_tpu's rtol 1e-5, with the
+    first converged extrapolant kept per element."""
+    import jax.numpy as jnp
+    import torch
+
+    a = np.array([0.0, 0.5, 0.1, 1.0])
+    b = np.array([2.0, 1.5, 3.0, 1.25])
+    for jf, tf, hf in (
+            (lambda x: 3 * x * x, lambda x: 3 * x * x, lambda x: 3 * x * x),
+            (lambda x: jnp.exp(-x) * jnp.sin(x),
+             lambda x: torch.exp(-x) * torch.sin(x),
+             lambda x: np.exp(-x) * np.sin(x)),
+            (lambda x: 1 / jnp.sqrt(x + 0.01),
+             lambda x: 1 / torch.sqrt(x + 0.01),
+             lambda x: 1 / np.sqrt(x + 0.01))):
+        want = np.asarray(jnum.romberg_jax(jf, a, b, eps=1e-6))
+        got = tnum.romberg_torch(tf, a, b, eps=1e-6, device="cpu")
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        host = [tnum.dromberg_o(hf, float(x), float(y), 1e-10)
+                for x, y in zip(a, b)]
+        np.testing.assert_allclose(got.numpy(), host, rtol=1e-5)
+    # a constant integrand converges at once and each element keeps that
+    # first extrapolant, b - a exactly, through the later levels
+    got = tnum.romberg_torch(lambda x: torch.ones_like(x), a, b, eps=1e-6,
+                             device="cpu")
+    np.testing.assert_array_equal(got.numpy(), (b - a).astype(np.float32))
+
+
+def test_member_mv_sums_dense_equals_pair():
+    """member_mv_sums and vcm_from_members take so_tpu's mvh: a dense
+    (N, 3) f32 m*v or the (vel, mass) pair, bit for bit the same f64 sums
+    (docs/PARITY.md #8), and so_tpu's own sums for either form."""
+    from so_tpu.engine import members as jmem
+
+    from so_tpu_torch.engine import members as tmem
+
+    rng = np.random.default_rng(41)
+    N, G = 5000, 40
+    vel = rng.normal(size=(N, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    counts = rng.integers(0, 60, G)
+    counts[3] = 0
+    rows = rng.integers(0, N, int(counts.sum()))
+    mvir = rng.uniform(1.0, 50.0, G).astype(np.float32)
+    dense = vel * mass[:, None]
+    pair = tmem.member_mv_sums((vel, mass), rows, counts)
+    got = tmem.member_mv_sums(dense, rows, counts)
+    assert got.dtype == np.float64 and got.tobytes() == pair.tobytes()
+    assert got.tobytes() == jmem.member_mv_sums(dense, rows, counts).tobytes()
+    assert pair.tobytes() == jmem.member_mv_sums((vel, mass), rows,
+                                                 counts).tobytes()
+    v = tmem.vcm_from_members(dense, rows, counts, mvir)
+    assert v.tobytes() == tmem.vcm_from_members((vel, mass), rows, counts,
+                                                mvir).tobytes()
+    assert v.tobytes() == jmem.vcm_from_members(dense, rows, counts,
+                                                mvir).tobytes()
+    assert not v[3].any()
+
+
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 def test_stats_and_units_agree(native, request):
     if not native:

@@ -135,6 +135,41 @@ def test_manifest_inputs_are_chip_smokes(species):
     assert entry["reduced"] is None
 
 
+def test_manifest_so_tpu_sources_match_the_tree():
+    """tests/torch_refs/ holds so_tpu's outputs: the digest of so_tpu's
+    sources in the manifest must be the tree's, so a change to so_tpu/
+    fails here until the references are written again."""
+    import make_torch_refs
+
+    with open(os.path.join(HERE, "torch_refs", "manifest.json")) as f:
+        recorded = json.load(f)["so_tpu_sources_sha256"]
+    assert make_torch_refs.so_tpu_sources_sha256() == recorded, (
+        "so_tpu/ changed since tests/torch_refs/ was written: run "
+        "`python tests/make_torch_refs.py`")
+
+
+def test_so_tpu_sources_sha256_sees_a_change(tmp_path):
+    """The digest moves with a byte of any .py file or native .c source,
+    and with a file's path."""
+    import make_torch_refs
+
+    for rel in ("so_tpu/__init__.py", "so_tpu/ops/grid.py",
+                "so_tpu/native/so_native.c"):
+        dst = tmp_path / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(os.path.join(ROOT, rel), dst)
+    base = make_torch_refs.so_tpu_sources_sha256(str(tmp_path))
+    for rel in ("so_tpu/ops/grid.py", "so_tpu/native/so_native.c"):
+        f = tmp_path / rel
+        keep = f.read_bytes()
+        f.write_bytes(keep + b" ")
+        assert make_torch_refs.so_tpu_sources_sha256(str(tmp_path)) != base
+        f.write_bytes(keep)
+    assert make_torch_refs.so_tpu_sources_sha256(str(tmp_path)) == base
+    (tmp_path / "so_tpu/ops/grid.py").rename(tmp_path / "so_tpu/ops/grid2.py")
+    assert make_torch_refs.so_tpu_sources_sha256(str(tmp_path)) != base
+
+
 @pytest.fixture(scope="module")
 def small_ref(tmp_path_factory):
     """make_torch_refs.write_box on a 2^15-particle / 256-halo make_box

@@ -558,7 +558,8 @@ def test_giant_route_serves_every_path(monkeypatch):
         centers = recenter_most_bound(grid, cat.pos, cat.rgtp, k0_cap=1024)
         ok = runs[0].solve.code == 0
         der = compute_derived(grid, cat.pos, runs[0].solve.rvir,
-                              runs[0].solve.mvir, ok, species=species)
+                              runs[0].solve.mvir, runs[0].solve.j, ok,
+                              species=species)
         return runs, multi, centers, der
 
     k1 = everything()

@@ -43,6 +43,25 @@ def test_seq_cumsum_matches_so_tpu(shape):
     _bits_equal(seqsum.column_loop(torch.as_tensor(x)).numpy(), want)
 
 
+@pytest.mark.parametrize("axis", [0, 1, -1, -2])
+def test_seq_cumsum_axis_matches_so_tpu(axis):
+    """seq_cumsum(x, axis) is so_tpu's seq_cumsum(x, axis) bit for bit,
+    down the columns as along the rows; n_valid then counts per column."""
+    rng = np.random.default_rng(23)
+    x = rng.uniform(0.0, 2.0, (333, 48)).astype(np.float32)
+    x[::5] = np.float32(1e-3)
+    want = np.asarray(jax_seq_cumsum(jnp.asarray(x), axis=axis))
+    _bits_equal(seqsum.seq_cumsum(torch.as_tensor(x), axis).numpy(), want)
+    if axis % 2 == 0:
+        nv = rng.integers(0, x.shape[0] + 1, x.shape[1])
+        xm = np.where(np.arange(x.shape[0])[:, None] < nv[None, :], x,
+                      np.float32(0.0))
+        got = seqsum.seq_cumsum(torch.as_tensor(x), axis,
+                                n_valid=torch.as_tensor(nv))
+        _bits_equal(got.numpy(),
+                    np.asarray(jax_seq_cumsum(jnp.asarray(xm), axis=0)))
+
+
 @pytest.mark.parametrize("nv", ["zero", "K", "random", "past_K"])
 def test_n_valid_is_the_cumsum_of_the_masked_rows(nv):
     """seq_cumsum(x, n_valid) = so_tpu's scan of where(slot < n_valid, x,
@@ -60,7 +79,8 @@ def test_n_valid_is_the_cumsum_of_the_masked_rows(nv):
     x[tail] = rng.choice(np.float32([np.nan, np.inf, -7.0, 1e30]),
                          int(tail.sum()))
     want = _jax(np.where(tail, np.float32(0.0), x))
-    got = seqsum.seq_cumsum(torch.as_tensor(x), torch.as_tensor(n_valid))
+    got = seqsum.seq_cumsum(torch.as_tensor(x),
+                            n_valid=torch.as_tensor(n_valid))
     _bits_equal(got.numpy(), want)
     _bits_equal(seqsum.seq_cumsum_plain(torch.as_tensor(x),
                                         torch.as_tensor(n_valid)).numpy(),
@@ -95,8 +115,9 @@ def test_adversarial_rows_are_serial():
             np.arange(K)[None, :] < nv[:, None], x, np.float32(0.0))
         want = np.cumsum(xm, axis=1, dtype=np.float32)
         _bits_equal(_jax(xm)[:-1], want[:-1])
-        got = seqsum.seq_cumsum(torch.as_tensor(x),
-                                None if nv is None else torch.as_tensor(nv))
+        got = seqsum.seq_cumsum(
+            torch.as_tensor(x),
+            n_valid=None if nv is None else torch.as_tensor(nv))
         _bits_equal(got.numpy(), want)
     # the rows are a witness: pairwise (torch) and blocked (32 columns at
     # a time, the blocks' sums then added) associations give other bits
@@ -125,7 +146,8 @@ def test_first_slot_is_copied():
     nv = torch.tensor([2, 2, 1, 1])
     want_nv = _jax(np.where(np.arange(2)[None, :] < nv.numpy()[:, None],
                             x.numpy(), np.float32(0.0)))
-    for got in (seqsum.seq_cumsum(x, nv), seqsum.seq_cumsum_plain(x, nv)):
+    for got in (seqsum.seq_cumsum(x, n_valid=nv),
+                seqsum.seq_cumsum_plain(x, nv)):
         _bits_equal(got.numpy(), want_nv)
     assert not np.signbit(want).any() and not np.signbit(want_nv).any()
     assert np.signbit(np.cumsum(x.numpy(), axis=1)[1, 1])   # np.cumsum's
@@ -142,12 +164,14 @@ def test_seq_cumsum_rejects_other_shapes():
     with pytest.raises(ValueError):
         seqsum.seq_cumsum(torch.zeros(5))
     with pytest.raises(ValueError):
+        seqsum.seq_cumsum(torch.zeros((2, 5)), 2)
+    with pytest.raises(ValueError):
         seqsum.seq_cumsum(torch.zeros((2, 5), dtype=torch.float64))
     x = torch.zeros((2, 5))
     for bad in (torch.zeros(3, dtype=torch.int64), torch.zeros(2),
                 torch.zeros(2, dtype=torch.bool)):
         with pytest.raises(ValueError):
-            seqsum.seq_cumsum(x, bad)
+            seqsum.seq_cumsum(x, n_valid=bad)
 
 
 @pytest.mark.parametrize("B, K, rows", [
@@ -184,7 +208,7 @@ def test_callers_pass_counts_and_keep_so_tpu_bits(monkeypatch):
     def recording(x, n_valid=None):
         assert n_valid is not None
         calls.append(int((n_valid < x.shape[1]).sum()))
-        return seqsum.seq_cumsum(x, n_valid)
+        return seqsum.seq_cumsum(x, n_valid=n_valid)
 
     monkeypatch.setattr(solver, "seq_cumsum", recording)
     monkeypatch.setattr(derived, "seq_cumsum", recording)
@@ -199,7 +223,7 @@ def test_callers_pass_counts_and_keep_so_tpu_bits(monkeypatch):
                                       err_msg=f)
     ok = got.code == 0
     assert ok.sum() >= 3
-    args = (grid, centers, got.rvir, got.mvir, ok, 8, (DARK,))
+    args = (grid, centers, got.rvir, got.mvir, got.j, ok, 8, (DARK,))
     n_solve = len(calls)
     der = derived.compute_derived(*args)
     assert n_solve > 0 and len(calls) > n_solve and sum(calls) > 0

@@ -29,19 +29,22 @@ from test_torch_solver import d2_forms  # noqa: E402
 import so_tpu.parallel as jax_parallel  # noqa: E402
 from so_tpu.ops.grid import choose_chunk as jax_choose_chunk  # noqa: E402
 from so_tpu.ops.grid import choose_m as jax_choose_m  # noqa: E402
-from so_tpu.parallel.mesh import extract_members_sharded  # noqa: E402
+from so_tpu.parallel.mesh import (  # noqa: E402
+    extract_members_sharded as jax_extract_members_sharded)
 from so_tpu_torch.cli import main  # noqa: E402
-from so_tpu_torch.engine import multi, solver  # noqa: E402
+from so_tpu_torch.engine import extract_members, multi, solver  # noqa: E402
 from so_tpu_torch.engine.fused import members_and_derived  # noqa: E402
 from so_tpu_torch.engine.pipeline import SOParams, run_so  # noqa: E402
 from so_tpu_torch.engine.recenter import recenter_most_bound  # noqa: E402
 from so_tpu_torch.io.tipsy import DARK, GAS, MARK, STAR  # noqa: E402
 from so_tpu_torch.ops import gather  # noqa: E402
 from so_tpu_torch.ops.grid import build_grid  # noqa: E402
-from so_tpu_torch.parallel import (build_sharded_grid, make_mesh,  # noqa: E402
+from so_tpu_torch.parallel import (build_sharded_grid,  # noqa: E402
+                                   extract_members_sharded, make_mesh,
                                    recenter_most_bound_sharded,
                                    run_so_sharded, solve_rvir_multi_sharded,
                                    solve_rvir_sharded)
+from so_tpu_torch.parallel.mesh import host_mv_from_sharded  # noqa: E402
 
 THR = 178.0
 MESHES = [(1, 2), (2, 4), (4, 2), (1, 8)]
@@ -236,7 +239,8 @@ def _fused(grid, data, solved, species):
     d, centers, _ = data
     ok = solved.code == 0
     return members_and_derived(grid, centers[ok], solved.rvir[ok],
-                               solved.j[ok], solved.mvir[ok],
+                               solved.d2cut[ok], solved.j[ok],
+                               solved.mvir[ok],
                                host_mv=(d["vel"], d["mass"]),
                                species=species)
 
@@ -247,9 +251,9 @@ def so_tpu_members(data, so_tpu_sharded):
     d, centers, _ = data
     mesh, sgrid, solved = so_tpu_sharded
     ok = solved.code == 0
-    return extract_members_sharded(mesh, sgrid, centers[ok], solved.d2cut[ok],
-                                   solved.j[ok], solved.mvir[ok],
-                                   host_mv=(d["vel"], d["mass"]))[0]
+    return jax_extract_members_sharded(
+        mesh, sgrid, centers[ok], solved.d2cut[ok], solved.j[ok],
+        solved.mvir[ok], host_mv=(d["vel"], d["mass"]))[0]
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)], ids=["2x4", "4x2"])
@@ -270,6 +274,66 @@ def test_sharded_fused_members_derived(data, single, so_tpu_members, shape):
     for sp in species:
         np.testing.assert_array_equal(got[2].profiles[sp],
                                       want[2].profiles[sp])
+
+
+@pytest.fixture(scope="module")
+def cellgrid_members(data, single):
+    """The port's extract_members on the single-device CellGrid."""
+    _, centers, _ = data
+    grid, solved = single
+    ok = solved.code == 0
+    return extract_members(grid, centers[ok], solved.d2cut[ok],
+                           solved.j[ok], solved.mvir[ok])
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 4), (4, 2)],
+                         ids=["1x2", "2x4", "4x2"])
+def test_sharded_extract_members(data, single, so_tpu_members,
+                                 cellgrid_members, shape):
+    """extract_members_sharded, and extract_members on a ShardedGrid
+    without host_mv (rebuilt from the shards by host_mv_from_sharded):
+    every list equals the CellGrid run's and so_tpu's sharded members,
+    vcm bit for bit the CellGrid run's; host_mv_from_sharded gives back
+    the file-order (vel, mass)."""
+    d, centers, _ = data
+    _, solved = single
+    ok = solved.code == 0
+    args = (centers[ok], solved.d2cut[ok], solved.j[ok], solved.mvir[ok])
+    mesh, sg = sharded(data, shape)
+    vel, mass = host_mv_from_sharded(sg)
+    assert vel.tobytes() == d["vel"].astype(np.float32).tobytes()
+    assert mass.tobytes() == d["mass"].astype(np.float32).tobytes()
+    want, want_vcm = cellgrid_members
+    assert len(want) == len(so_tpu_members) == int(ok.sum()) >= 5
+    runs = [extract_members_sharded(mesh, sg, *args),
+            extract_members(sg, *args)]
+    if shape == (1, 2):
+        runs.append(extract_members_sharded(mesh, sg, *args,
+                                            cap_hint=solved.kcap[ok]))
+    for got, got_vcm in runs:
+        assert len(got) == len(want)
+        for a, b, c in zip(got, want, so_tpu_members):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        assert got_vcm.tobytes() == want_vcm.tobytes()
+    with pytest.raises(ValueError, match="another mesh"):
+        extract_members_sharded(cpu_mesh(1, 2), sharded(data, (2, 1))[1],
+                                *args)
+
+
+def test_rank_grid_members_need_host_mv(data, single):
+    """One rank's part of a --distributed grid holds only its own rows:
+    extract_members without host_mv refuses it and names host_mv."""
+    import dataclasses
+
+    _, centers, _ = data
+    _, solved = single
+    ok = solved.code == 0
+    _, sg = sharded(data, (1, 2))
+    rank = dataclasses.replace(sg, comm=object())
+    with pytest.raises(ValueError, match="host_mv"):
+        extract_members(rank, centers[ok], solved.d2cut[ok], solved.j[ok],
+                        solved.mvir[ok])
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 4)], ids=["1x2", "2x4"])

@@ -145,15 +145,21 @@ def test_solve_matches_so_tpu(name):
 
 def test_capacity_escalation_matches_so_tpu():
     """A dense clump at a tiny first capacity: overflow -> x4 regathers
-    and ladder growth take several rounds; results are path-independent.
+    and ladder growth take several rounds; results are path-independent,
+    and ``progress`` reports the resolved count after each round.
     so_tpu runs its XLA row gather here (its slab kernel's interpret mode
     is covered above and agrees with it bit for bit, test_pallas.py)."""
     data, centers, rgtp, thr = _clumpy(23, False)
     want = jax_solve_rvir(jax_build_grid(data["pos"], data["mass"], m=3),
                           centers, rgtp, thr)
     grid = build_grid(data["pos"], data["mass"], m=3, device="cpu")
-    got = solve_rvir(grid, centers, rgtp, thr, k0_cap=256)
+    seen = []
+    got = solve_rvir(grid, centers, rgtp, thr, k0_cap=256,
+                     progress=lambda done, total: seen.append((done, total)))
     assert (got.kcap > 256).any()
+    # progress(resolved, G) after each round, as so_tpu's solve calls it
+    assert len(seen) > 1 and seen[-1] == (centers.shape[0],) * 2
+    assert all(a[0] <= b[0] for a, b in zip(seen, seen[1:]))
     for f in ("code", "mvir", "rvir", "j"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                       err_msg=f)
@@ -176,3 +182,105 @@ def test_sqrt_rn_is_correctly_rounded():
         pytest.skip("torch.sqrt is correctly rounded on this CPU build")
     got = sqrt_rn(torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want)
+
+
+def vcm_bound(out, mass_s, vel_s):
+    """Per halo and component, how far two f32 evaluations of scan_sorted's
+    vcm may differ when they sum its n = jstar terms m*v in other orders:
+    each sum is within (n - 1) 2^-24 sum|m v| of the exact one (Higham's
+    bound for any order), and the quotient by Mvir adds a rounding."""
+    n = out["jstar"].numpy().astype(np.float64)[:, None]
+    slot = np.arange(mass_s.shape[1])[None, :]
+    w = np.where(slot < n, mass_s.numpy().astype(np.float64), 0.0)
+    absum = (w[:, :, None] * np.abs(vel_s.numpy())).sum(axis=1)
+    mvir = out["mvir"].numpy().astype(np.float64)[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return (n + 2) * 2.0 ** -23 * absum / mvir
+
+
+@pytest.fixture(scope="module")
+def sorted_hits():
+    """Distance-sorted hits of the general clumpy box (seed 11) at three
+    times each halo's Rgtp, from the port's sorted gather: (d2, mass, vel,
+    n_in, uniform mass, thr); the same arrays feed both packages."""
+    import torch
+
+    from so_tpu_torch.ops.gather import slab_gather
+
+    data, centers, rgtp, thr = _clumpy(11, False)
+    grid = build_grid(data["pos"], data["mass"], vel=data["vel"], m=3,
+                      device="cpu")
+    r = torch.as_tensor(rgtp * np.float32(3))
+    sg = slab_gather(grid, 1, torch.as_tensor(centers), r, r * r, 8192, 7,
+                     channels=("mass", "idx"))
+    assert not sg.overflow.any()
+    idx = sg.channels[1]
+    vel = torch.where((idx >= 0)[..., None],
+                      grid.vel_a()[idx.clamp(min=0).long()], 0.0)
+    return sg.d2, sg.channels[0], vel, sg.n_in, float(data["mass"][0]), thr
+
+
+@pytest.mark.parametrize("masses,with_vel,with_lad", [
+    ("general", False, False), ("general", True, False),
+    ("uniform", False, False), ("uniform", False, True),
+    ("uniform", True, True)])
+def test_scan_sorted_matches_so_tpu(sorted_hits, masses, with_vel, with_lad):
+    """scan_sorted against so_tpu's on the same sorted hits: found, jstar,
+    mvir and d2cut exactly. rvir is the f64 cube root of so_tpu's f32
+    quotient rounded once (ops/ieee.cbrt_f32), within 2 ulp of so_tpu's:
+    XLA:CPU's f32 cbrt is itself up to 2 ulp from the correctly rounded
+    root. vcm within the f32 bound of two sums of the same n = jstar
+    terms in other orders, (n + 2) 2^-23 sum|m v| / Mvir (so_tpu's XLA
+    reduction orders them otherwise), zeros without vel_s.
+    Uniform masses take the shared ladder, given (lad) or cached; uniform
+    with vel_s passes the uniform per-slot masses too."""
+    import torch
+
+    import jax.numpy as jnp
+
+    from so_tpu.engine.solver import scan_sorted as jax_scan_sorted
+    from so_tpu_torch.engine.solver import FOUR_THIRDS_PI, scan_sorted
+
+    d2, mass, vel, n_in, m0, thr = sorted_hits
+    K = d2.shape[1]
+    um = None
+    if masses == "uniform":
+        um = m0
+        slot = torch.arange(K)[None, :]
+        mass = torch.where(slot < n_in[:, None], torch.tensor(np.float32(um)),
+                           0.0)
+    mass_s = mass if (masses == "general" or with_vel) else None
+    vel_s = vel if with_vel else None
+    lad = (np.cumsum(np.full(K, np.float32(um), np.float32))
+           if with_lad else None)
+    got = scan_sorted(d2, mass_s, vel_s, n_in, thr, 8, uniform_m=um,
+                      lad=None if lad is None else torch.as_tensor(lad))
+
+    def j(t):
+        return None if t is None else jnp.asarray(t.numpy())
+
+    want = {k: np.asarray(v) for k, v in jax_scan_sorted(
+        j(d2), j(mass_s), j(vel_s), jnp.asarray(n_in.numpy().astype(np.int32)),
+        thr, 8, uniform_m=um,
+        lad=None if lad is None else jnp.asarray(lad)).items()}
+    found = got["found"].numpy()
+    assert 0 < found.sum() < found.size
+    np.testing.assert_array_equal(found, want["found"])
+    np.testing.assert_array_equal(got["jstar"].numpy(), want["jstar"])
+    for f in ("mvir", "d2cut"):
+        np.testing.assert_array_equal(got[f].numpy().view(np.int32),
+                                      want[f].view(np.int32), err_msg=f)
+    rvir = got["rvir"].numpy()
+    q = got["mvir"].numpy() / (FOUR_THIRDS_PI * np.float32(thr))
+    np.testing.assert_array_equal(
+        rvir, np.cbrt(q.astype(np.float64)).astype(np.float32))
+    ulp = np.abs(rvir.view(np.int32).astype(np.int64)
+                 - want["rvir"].view(np.int32))
+    assert ulp.max() <= 2
+    if with_vel:
+        assert (np.abs(got["vcm"].numpy() - want["vcm"])[found]
+                <= vcm_bound(got, mass_s, vel_s)[found]).all()
+    else:
+        assert not got["vcm"].numpy().any() and not want["vcm"].any()
+    with pytest.raises(ValueError, match="mass_s"):
+        scan_sorted(d2, None, vel, n_in, thr, 8, uniform_m=m0)
