@@ -24,7 +24,9 @@ import torch
 
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
-from .derived import DerivedResult, ball_rounds, derived_from_sorted
+from ..profiling import counts, span
+from .derived import (DerivedResult, ball_rounds, derived_from_sorted,
+                      probe_capacities)
 from .members import vcm_from_members
 
 
@@ -83,6 +85,12 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
     full member array to what is kept of it (parallel.driver.
     seg_member_filter: the rank's segment rows with their ranks), so no
     rank keeps every member list.
+
+    Spans: fused.probe (the footprints that size the first capacities)
+    and a fused.dispatch a stage, with fused.gather (the stage's enqueue),
+    fused.fetch (its three fetches), fused.fill (derived.fill), fused.split
+    (the member lists) and fused.vcm. Counts: fused.dispatches and
+    fused.halo_gathers (halos over all dispatches).
     """
     G = centers.shape[0]
     dev = grid.device
@@ -102,24 +110,35 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
         def dev_t(a):
             return torch.as_tensor(a[part], device=dev)
 
-        mem, counts, der, ovf = _fused_stage(
-            grid, level, K, S, n_members, species, dev_t(centers),
-            dev_t(rvir), dev_t(d2cut), dev_t(j), dev_t(mvir), grav)
-        ovf = ovf.cpu().numpy()
-        counts = counts.cpu().numpy()
-        rows64 = mem.cpu().numpy()
-        ok = ~ovf
-        derived.fill(part, ok, der)
-        pieces = np.split(rows64, np.cumsum(counts)[:-1])
-        for i in np.nonzero(ok)[0]:
-            out_members[part[i]] = (pieces[i] if member_filter is None
-                                    else member_filter(pieces[i]))
-        # group mean velocity from the member rows (_VcmParticles)
-        vcm[part[ok]] = (vcm_from_members(host_mv, rows64, counts,
-                                          mvir[part]) if vcm_fn is None
-                         else vcm_fn(rows64, counts, mvir[part]))[ok]
+        with span("fused.dispatch"):
+            counts[("fused.dispatches",)] += 1
+            counts[("fused.halo_gathers",)] += int(part.size)
+            with span("fused.gather"):
+                mem, counts_t, der, ovf = _fused_stage(
+                    grid, level, K, S, n_members, species, dev_t(centers),
+                    dev_t(rvir), dev_t(d2cut), dev_t(j), dev_t(mvir), grav)
+            with span("fused.fetch"):
+                ovf = ovf.cpu().numpy()
+                n_mem = counts_t.cpu().numpy()
+                rows64 = mem.cpu().numpy()
+            ok = ~ovf
+            with span("fused.fill"):
+                derived.fill(part, ok, der)
+            with span("fused.split"):
+                pieces = np.split(rows64, np.cumsum(n_mem)[:-1])
+                for i in np.nonzero(ok)[0]:
+                    out_members[part[i]] = (pieces[i] if member_filter is None
+                                            else member_filter(pieces[i]))
+            with span("fused.vcm"):
+                # group mean velocity from the member rows (_VcmParticles)
+                vcm[part[ok]] = (vcm_from_members(host_mv, rows64, n_mem,
+                                                  mvir[part]) if vcm_fn is None
+                                 else vcm_fn(rows64, n_mem, mvir[part]))[ok]
         return ovf
 
-    ball_rounds(grid, centers, (np.float32(2.0) * rvir).astype(np.float32),
-                np.arange(G), stage)
+    fball = (np.float32(2.0) * rvir).astype(np.float32)
+    todo = np.arange(G)
+    with span("fused.probe"):
+        need_cap = probe_capacities(grid, centers, fball, todo)
+    ball_rounds(grid, centers, fball, todo, stage, need_cap)
     return out_members, vcm, derived

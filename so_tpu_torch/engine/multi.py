@@ -23,12 +23,13 @@ import torch
 
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
+from ..profiling import counts, span
 from . import solver
 from .solver import (DK, SOLVE_SLOT_BUDGET, _chunk_for, _dispatch_chunks,
                      _k_limit, _pick_level_span, _wbox_chunk,
-                     _whole_box_stage, enclosed_density, ladder_radius,
-                     pack_block, rvir_ladder, rvir_reference_bits,
-                     scan_verdict, survey_pass)
+                     _whole_box_stage, count_dispatch, enclosed_density,
+                     ladder_radius, pack_block, rvir_ladder,
+                     rvir_reference_bits, scan_verdict, survey_pass)
 
 
 @dataclass
@@ -48,14 +49,18 @@ def _multi_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
     """One capacity tier for T thresholds: gather + sort + one cumulative
     mass, then a verdict per threshold. Returns host arrays ((B, 2) ints
     [n_in, overflow], (T, B, 2) ints [found, jstar], (T, B, 2) f32
-    [mvir, d2cut])."""
+    [mvir, d2cut]). Spans: solve.ranges, solve.gather, solve.sort (above
+    the sorted form's slots), solve.scan and solve.fetch."""
     um = grid.uniform_mass
     g = slab_gather(grid, level, centers, radii, radii * radii, K, S,
-                    channels=() if um is not None else ("mass",))
-    mass_s = None if um is not None else g.channels[0]
-    cum, rho = enclosed_density(g.d2, mass_s, g.n_in, um)
-    outs = [scan_verdict(g.d2, mass_s, g.n_in, cum, rho, thr, n_members, um)
-            for thr in thresholds]
+                    channels=() if um is not None else ("mass",),
+                    layer="solve")
+    with span("solve.scan"):
+        mass_s = None if um is not None else g.channels[0]
+        cum, rho = enclosed_density(g.d2, mass_s, g.n_in, um)
+        outs = [scan_verdict(g.d2, mass_s, g.n_in, cum, rho, thr, n_members,
+                             um)
+                for thr in thresholds]
     return pack_block(g.n_in, g.overflow, outs)
 
 
@@ -72,47 +77,57 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     against one shared gather, and a halo skips the sorted rounds only
     when every threshold resolved. Results are the same either way.
     ``progress(resolved, G)``, if given, is called after each round with
-    the count of halos resolved at every threshold."""
-    thresholds = np.asarray(thresholds, np.float32)
-    T = thresholds.shape[0]
-    G = centers.shape[0]
-    dev = grid.device
-    centers = np.asarray(centers, np.float32)
-    rgtp = np.asarray(rgtp, np.float32)
+    the count of halos resolved at every threshold.
 
-    code = np.zeros((T, G), np.int32)
-    mvir = np.zeros((T, G), np.float32)
-    rvir = np.zeros((T, G), np.float32)
-    jout = np.zeros((T, G), np.int32)
-    d2cut = np.zeros((T, G), np.float32)
-    resolved = np.zeros((T, G), bool)
+    Spans (children of the caller's): solve.plan (the host's set-up, each
+    round's live set and capacity tiers, each tier's radii and level),
+    solve.survey (the pre-pass), solve.dispatch (one gather stage: its
+    _multi_stage spans and solve.apply, the verdicts and escalation) and
+    solve.wbox (one whole-box stage and its solve.apply). Counts:
+    solve.rounds, solve.dispatches, solve.halo_gathers (halos over all
+    dispatches, the survey's and whole-box ones too),
+    solve.overflow_regathers and solve.ball_regrows (halos sent to
+    another round by overflow or by a grown ball)."""
+    with span("solve.plan"):
+        thresholds = np.asarray(thresholds, np.float32)
+        T = thresholds.shape[0]
+        G = centers.shape[0]
+        dev = grid.device
+        centers = np.asarray(centers, np.float32)
+        rgtp = np.asarray(rgtp, np.float32)
 
-    def settle(t, idx, c):
-        code[t, idx] = c
-        mvir[t, idx] = float(c)
-        rvir[t, idx] = float(c)
-        resolved[t, idx] = True
+        code = np.zeros((T, G), np.int32)
+        mvir = np.zeros((T, G), np.float32)
+        rvir = np.zeros((T, G), np.float32)
+        jout = np.zeros((T, G), np.int32)
+        d2cut = np.zeros((T, G), np.float32)
+        resolved = np.zeros((T, G), bool)
 
-    kmax, _ = rvir_ladder(rgtp, grid.period_np())
-    settle(slice(None), kmax == 0, -3)
+        def settle(t, idx, c):
+            code[t, idx] = c
+            mvir[t, idx] = float(c)
+            rvir[t, idx] = float(c)
+            resolved[t, idx] = True
 
-    cur_k = np.ones(G, np.int32)
-    cur_cap = np.full(G, k0_cap, np.int64)
-    kcap = cur_cap.copy()
-    minus1_open = np.ones(G, bool)
-    kl = _k_limit(grid)
-    k_cap_max = max(2 * kl, k0_cap)
-    # the whole-box route: a single-device uniform-mass grid only (so never
-    # under --mesh or --distributed), for tiers above WBOX_K_MIN slots
-    wk = (solver.WBOX_K_MIN if isinstance(grid, CellGrid)
-          and grid.uniform_mass is not None else None)
+        kmax, _ = rvir_ladder(rgtp, grid.period_np())
+        settle(slice(None), kmax == 0, -3)
+
+        cur_k = np.ones(G, np.int32)
+        cur_cap = np.full(G, k0_cap, np.int64)
+        kcap = cur_cap.copy()
+        minus1_open = np.ones(G, bool)
+        kl = _k_limit(grid)
+        k_cap_max = max(2 * kl, k0_cap)
+        # the whole-box route: a single-device uniform-mass grid only (so
+        # never under --mesh or --distributed), for tiers above WBOX_K_MIN
+        # slots
+        wk = (solver.WBOX_K_MIN if isinstance(grid, CellGrid)
+              and grid.uniform_mass is not None else None)
 
     n_survey = 0
     if survey is not False and not resolved.all():
         # sort-free -1/-2 pre-pass over the first ladder rung; survivors
         # rescan rung 1 in the normal rounds (the scan is round-stateless)
-        live = np.nonzero(~resolved.all(axis=0))[0]
-
         def classify_apply(part, packed):
             w0 = packed[:, 0]
             n_in, ovf = w0 & 0x7FFFFFFF, (w0 >> 31) & 1
@@ -126,10 +141,14 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             # only halos resolved at every threshold skip the sorted rounds
             return int(resolved[:, part].all(axis=0).sum())
 
-        n_survey = survey_pass(
-            grid, centers, ladder_radius(rgtp[live], np.minimum(
-                cur_k[live], kmax[live])), live, n_members,
-            int(min(k0_cap, kl)), thresholds, survey is None, classify_apply)
+        with span("solve.survey"):
+            with span("solve.plan"):
+                live = np.nonzero(~resolved.all(axis=0))[0]
+                radii0 = ladder_radius(rgtp[live], np.minimum(cur_k[live],
+                                                              kmax[live]))
+            n_survey = survey_pass(grid, centers, radii0, live, n_members,
+                                   int(min(k0_cap, kl)), thresholds,
+                                   survey is None, classify_apply)
 
     def apply_block(part, ints, per_t, flts, k_now, cap_now):
         """One round of verdicts + escalation (kd2.c:745-839) for T
@@ -179,56 +198,76 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
         cur_cap[gi] = np.maximum(cur_cap[gi], np.minimum(
             2 ** np.ceil(np.log2(np.maximum(est, 1))).astype(np.int64),
             k_cap_max))
+        counts[("solve.overflow_regathers",)] += int(grow_cap.sum())
+        counts[("solve.ball_regrows",)] += int(grow_ball.sum())
 
     rnd = 0
     while not resolved.all():
-        rnd += 1
-        if rnd > 200:
-            raise RuntimeError("solver failed to converge (escalation "
-                               "runaway)")
-        live = np.nonzero(~resolved.all(axis=0))[0]
-        # unify the capacity tier across a tail that fits one dispatch;
-        # otherwise only within a x16 band of the largest cap. With the
-        # whole-box route live, only the gather tiers unify: a halo lifted
-        # into a whole-box tier would pay a full-box pass it does not need
-        sub = live if wk is None else live[np.minimum(cur_cap[live], kl)
-                                           <= wk]
-        if rnd > 1 and sub.size:
-            capu = cur_cap[sub].max()
-            if sub.size <= _chunk_for(grid.parts * int(min(capu, kl)),
-                                      SOLVE_SLOT_BUDGET):
-                cur_cap[sub] = capu
-            else:
-                cur_cap[sub[cur_cap[sub] * 16 > capu]] = capu
-        for capacity in np.unique(cur_cap[live]):
-            sel = live[cur_cap[live] == capacity]
-            K = int(min(capacity, kl))
-            if wk is not None and K > wk:
-                # a halo whose -1 verdict is closed jumps to its last rung;
-                # a still-open one (every earlier round overflowed, so it
-                # is still at rung 1) first decides -1 at its current rung
-                k_dst = np.where(minus1_open[sel],
-                                 np.minimum(cur_k[sel], kmax[sel]), kmax[sel])
-                radii = ladder_radius(rgtp[sel], k_dst)
-                bw = _wbox_chunk(grid.n)
+        with span("solve.plan"):
+            rnd += 1
+            if rnd > 200:
+                raise RuntimeError("solver failed to converge (escalation "
+                                   "runaway)")
+            counts[("solve.rounds",)] += 1
+            live = np.nonzero(~resolved.all(axis=0))[0]
+            # unify the capacity tier across a tail that fits one dispatch;
+            # otherwise only within a x16 band of the largest cap. With the
+            # whole-box route live, only the gather tiers unify: a halo
+            # lifted into a whole-box tier would pay a full-box pass it
+            # does not need
+            sub = live if wk is None else live[np.minimum(cur_cap[live], kl)
+                                               <= wk]
+            if rnd > 1 and sub.size:
+                capu = cur_cap[sub].max()
+                if sub.size <= _chunk_for(grid.parts * int(min(capu, kl)),
+                                          SOLVE_SLOT_BUDGET):
+                    cur_cap[sub] = capu
+                else:
+                    cur_cap[sub[cur_cap[sub] * 16 > capu]] = capu
+            tiers = np.unique(cur_cap[live])
+        for capacity in tiers:
+            with span("solve.plan"):
+                sel = live[cur_cap[live] == capacity]
+                K = int(min(capacity, kl))
+                wbox = wk is not None and K > wk
+                if wbox:
+                    # a halo whose -1 verdict is closed jumps to its last
+                    # rung; a still-open one (every earlier round
+                    # overflowed, so it is still at rung 1) first decides
+                    # -1 at its current rung
+                    k_dst = np.where(minus1_open[sel],
+                                     np.minimum(cur_k[sel], kmax[sel]),
+                                     kmax[sel])
+                    radii = ladder_radius(rgtp[sel], k_dst)
+                    bw = _wbox_chunk(grid.n)
+                else:
+                    k_eff = np.minimum(cur_k[sel], kmax[sel])
+                    radii = ladder_radius(rgtp[sel], k_eff)
+                    level, S = _pick_level_span(grid, float(radii.max()))
+            if wbox:
                 for lo in range(0, sel.size, bw):
-                    part = sel[lo:lo + bw]
-                    out = _whole_box_stage(
-                        grid, torch.as_tensor(centers[part], device=dev),
-                        torch.as_tensor(radii[lo:lo + part.size], device=dev),
-                        thresholds, n_members)
-                    apply_block(part, *out, k_dst[lo:lo + part.size], grid.n)
+                    with span("solve.wbox"):
+                        part = sel[lo:lo + bw]
+                        count_dispatch(part)
+                        out = _whole_box_stage(
+                            grid, torch.as_tensor(centers[part], device=dev),
+                            torch.as_tensor(radii[lo:lo + part.size],
+                                            device=dev),
+                            thresholds, n_members)
+                        with span("solve.apply"):
+                            apply_block(part, *out,
+                                        k_dst[lo:lo + part.size], grid.n)
                 continue
-            k_eff = np.minimum(cur_k[sel], kmax[sel])
-            radii = ladder_radius(rgtp[sel], k_eff)
-            level, S = _pick_level_span(grid, float(radii.max()))
             for lo, part in _dispatch_chunks(sel, grid.parts * K):
-                out = _multi_stage(
-                    grid, level, K, S, n_members,
-                    torch.as_tensor(centers[part], device=dev),
-                    torch.as_tensor(radii[lo:lo + part.size], device=dev),
-                    thresholds)
-                apply_block(part, *out, k_eff[lo:lo + part.size], K)
+                with span("solve.dispatch"):
+                    count_dispatch(part)
+                    out = _multi_stage(
+                        grid, level, K, S, n_members,
+                        torch.as_tensor(centers[part], device=dev),
+                        torch.as_tensor(radii[lo:lo + part.size], device=dev),
+                        thresholds)
+                    with span("solve.apply"):
+                        apply_block(part, *out, k_eff[lo:lo + part.size], K)
         if progress is not None:
             progress(int(resolved.all(axis=0).sum()), G)
     return MultiSolveResult(code=code, mvir=mvir, rvir=rvir, j=jout,

@@ -34,7 +34,7 @@ from ..io.tipsy import ParticleSet
 from ..numerics import indexx
 from ..ops.grid import CellGrid, build_grid
 from ..parallel.mesh import build_sharded_grid
-from ..profiling import PhaseTimer, profile_trace
+from ..profiling import PhaseTimer, profile_trace, span
 from ..stats import RunStats, compute_stats
 from .conflicts import ConflictState, resolve_conflicts
 from .derived import DerivedResult, compute_derived
@@ -107,9 +107,11 @@ def _grid_and_centers(particles, catalog, params, dev, timer, grid, mesh):
     the optionally recentred centers."""
     if grid is None:
         with timer.phase("grid build"):
+            with span("grid.ptype"):
+                ptype = particles.ptype_all()
             kw = dict(vel=particles.vel,
                       phi=particles.phi if params.b_pot else None,
-                      ptype=particles.ptype_all(), mark=particles.mark,
+                      ptype=ptype, mark=particles.mark,
                       period=params.period, center=params.center)
             grid = (build_grid(particles.pos, particles.mass, device=dev,
                                **kw) if mesh is None else
@@ -129,10 +131,11 @@ def run_so(particles: ParticleSet, catalog: GroupCatalog, params: SOParams,
     """The single-threshold pipeline. ``grid`` may be a prebuilt grid of
     these particles on the run's device (with phi for -pot); ``mesh``
     shards the grid over the mesh's devices instead, and the run uses them
-    (params.device is not read)."""
+    (params.device is not read). The run is one span, "run_so", the root
+    of its phases' spans (profiling)."""
     dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
-    with profile_trace(params.profile_dir, dev):
+    with profile_trace(params.profile_dir, dev), span("run_so"):
         grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
                                                 dev, timer, grid, mesh)
         t0 = _time.perf_counter()
@@ -175,11 +178,11 @@ def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
     """Multi-threshold pipeline: one grid and one shared-gather solve
     (engine.multi), then the full post-solve per threshold; each SORun
     equals an independent run_so at that threshold. ``grid`` and ``mesh``
-    as in run_so."""
+    as in run_so; the root span is "run_so_multi"."""
     dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
     runs: list[SORun] = []
-    with profile_trace(params.profile_dir, dev):
+    with profile_trace(params.profile_dir, dev), span("run_so_multi"):
         grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
                                                 dev, timer, grid, mesh)
         t0 = _time.perf_counter()
@@ -247,14 +250,16 @@ def _post_solve(grid, particles, catalog, centers, solve, params,
                          (particles.vel, particles.mass)),
                 n_members=params.n_members, species=tuple(params.species),
                 grav=params.grav, vcm_fn=vcm_fn, member_filter=member_filter)
-            members = [None] * catalog.n
-            for slot, h in enumerate(np.nonzero(ok)[0]):
-                members[h] = members_ok[slot]
-            solve.vcm[ok] = vcm_ok  # _VcmParticles (kd2.c:595-609)
+            with span("fused.members_list"):
+                members = [None] * catalog.n
+                for slot, h in enumerate(np.nonzero(ok)[0]):
+                    members[h] = members_ok[slot]
+                solve.vcm[ok] = vcm_ok  # _VcmParticles (kd2.c:595-609)
 
     with timer.phase("conflict protocol"):
         # ascending input-mass order (kdSortMass, kd2.c:843-861)
-        order = indexx(np.asarray(catalog.gtp_mass, np.float32))
+        with span("conflicts.order"):
+            order = indexx(np.asarray(catalog.gtp_mass, np.float32))
         conflicts = (conflict_fn or resolve_conflicts)(
             catalog.index, centers, solve.mvir, solve.rvir, solve.code,
             order, members,

@@ -48,6 +48,7 @@ from ..ops.gather import min_image, unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import cbrt_f32, sqrt_rn
 from ..ops.seqsum import seq_cumsum
+from ..profiling import counts, span
 
 FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
@@ -217,13 +218,14 @@ def scan_sorted(d2_s, mass_s, vel_s, n_in, thr, n_members: int,
 def pack_block(n_in, overflow, outs):
     """A stage's host block from its scan_verdict dicts (one a threshold):
     ((B, 2) ints [n_in, overflow], (T, B, 2) ints [found, jstar], (T, B,
-    2) f32 [mvir, d2cut])."""
-    ints = torch.stack([n_in, overflow.long()], dim=1)
-    per_t = torch.stack([torch.stack([o["found"].long(), o["jstar"]], dim=1)
-                         for o in outs])
-    flts = torch.stack([torch.stack([o["mvir"], o["d2cut"]], dim=1)
-                        for o in outs])
-    return ints.cpu().numpy(), per_t.cpu().numpy(), flts.cpu().numpy()
+    2) f32 [mvir, d2cut]), in a span solve.fetch."""
+    with span("solve.fetch"):
+        ints = torch.stack([n_in, overflow.long()], dim=1)
+        per_t = torch.stack([torch.stack([o["found"].long(), o["jstar"]],
+                                         dim=1) for o in outs])
+        flts = torch.stack([torch.stack([o["mvir"], o["d2cut"]], dim=1)
+                            for o in outs])
+        return ints.cpu().numpy(), per_t.cpu().numpy(), flts.cpu().numpy()
 
 
 def whole_box_d2(grid: CellGrid, centers):
@@ -310,20 +312,24 @@ def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
     rounds, whose verdict is the contract. ``thresholds`` is a (T,) f32
     vector: the -2 rule is evaluated per threshold against the same
     gather. Returns the host (B, 2) i32
-    [n_in | overflow << 31, bit t = -2 at thresholds[t]]."""
+    [n_in | overflow << 31, bit t = -2 at thresholds[t]]. Spans:
+    solve.ranges, solve.gather, solve.scan (the verdict) and solve.fetch."""
     um = grid.uniform_mass
     d2, ch, _, overflow = unsorted_gather(
         grid, level, centers, radii, radii * radii, K, S,
-        chans=() if um is not None else ("mass",))
-    n_in = torch.isfinite(d2).sum(dim=1)
-    if um is not None:
-        m2 = _classify_counts(d2, n_in, thresholds, n_members, um)
-    else:
-        kk = min(K, max(16, n_members + 2))   # a clamped window defers -2
-        d2k, mk = _classify_prefix(d2, ch[:, 0], kk)
-        m2 = _classify_verdict(d2k, mk, n_in, thresholds, n_members)
-    w0 = n_in | (overflow.long() << 31)
-    return torch.stack([w0, m2], dim=1).cpu().numpy().astype(np.int32)
+        chans=() if um is not None else ("mass",), layer="solve")
+    with span("solve.scan"):
+        n_in = torch.isfinite(d2).sum(dim=1)
+        if um is not None:
+            m2 = _classify_counts(d2, n_in, thresholds, n_members, um)
+        else:
+            kk = min(K, max(16, n_members + 2))  # a clamped window defers -2
+            d2k, mk = _classify_prefix(d2, ch[:, 0], kk)
+            m2 = _classify_verdict(d2k, mk, n_in, thresholds, n_members)
+        w0 = n_in | (overflow.long() << 31)
+        packed = torch.stack([w0, m2], dim=1)
+    with span("solve.fetch"):
+        return packed.cpu().numpy().astype(np.int32)
 
 
 # the certainty band of _classify_counts: ~250 f32 ulps, covering the
@@ -409,13 +415,22 @@ SURVEY_SAMPLE = 1024
 SURVEY_FRAC = 0.25
 
 
+def count_dispatch(part: np.ndarray) -> None:
+    """One solve dispatch over the halos ``part``, in profiling's counts."""
+    counts[("solve.dispatches",)] += 1
+    counts[("solve.halo_gathers",)] += int(part.size)
+
+
 def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
                 thresholds, auto: bool, apply) -> int:
     """The sort-free -1/-2 pre-pass over the live halos at their first
     ladder radii. ``apply(part, packed)`` takes each dispatch's
     _classify_stage block and returns how many halos it resolved; with
     ``auto`` a sample decides whether the rest is classified. Returns
-    the number of halos resolved."""
+    the number of halos resolved. Spans: solve.plan (each run's level),
+    solve.dispatch (a _classify_stage and solve.apply, ``apply``'s
+    call); each dispatch adds to the counts solve.dispatches and
+    solve.halo_gathers."""
     if live.size < SURVEY_MIN_G and auto:
         return 0
     dev = grid.device
@@ -424,14 +439,18 @@ def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
         total = 0
         if idx.size == 0:
             return total
-        level, S = _pick_level_span(grid, float(rads.max()))
+        with span("solve.plan"):
+            level, S = _pick_level_span(grid, float(rads.max()))
         for lo, part in _dispatch_chunks(idx, grid.parts * K):
-            packed = _classify_stage(
-                grid, level, K, S, n_members,
-                torch.as_tensor(centers[part], device=dev),
-                torch.as_tensor(rads[lo:lo + part.size], device=dev),
-                thresholds)
-            total += apply(part, packed)
+            with span("solve.dispatch"):
+                count_dispatch(part)
+                packed = _classify_stage(
+                    grid, level, K, S, n_members,
+                    torch.as_tensor(centers[part], device=dev),
+                    torch.as_tensor(rads[lo:lo + part.size], device=dev),
+                    thresholds)
+                with span("solve.apply"):
+                    total += apply(part, packed)
         return total
 
     start = n_res = 0

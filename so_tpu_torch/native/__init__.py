@@ -17,6 +17,8 @@ import subprocess
 
 import numpy as np
 
+from ..profiling import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "so_native.c")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -97,43 +99,45 @@ def conflict_pass_native(index, pos, mvir, rvir, code, order, members,
     lib = get_lib()
     if lib is None:
         return None
-    G = index.shape[0]
-    index = np.ascontiguousarray(index, np.int32)
-    pos = np.ascontiguousarray(pos, np.float32)
-    mvir = np.ascontiguousarray(mvir, np.float32).copy()
-    rvir = np.ascontiguousarray(rvir, np.float32).copy()
-    code = np.ascontiguousarray(code, np.int32)
-    order = np.ascontiguousarray(order, np.int64)
+    with span("conflicts.prep"):
+        G = index.shape[0]
+        index = np.ascontiguousarray(index, np.int32)
+        pos = np.ascontiguousarray(pos, np.float32)
+        mvir = np.ascontiguousarray(mvir, np.float32).copy()
+        rvir = np.ascontiguousarray(rvir, np.float32).copy()
+        code = np.ascontiguousarray(code, np.int32)
+        order = np.ascontiguousarray(order, np.int64)
 
-    mem_off = np.zeros(G + 1, np.int64)
-    for g in range(G):
-        m = members[g]
-        mem_off[g + 1] = mem_off[g] + (0 if m is None else m.size)
-    mem = np.zeros(int(mem_off[-1]), np.int64)
-    for g in range(G):
-        m = members[g]
-        if m is not None and m.size:
-            mem[mem_off[g]:mem_off[g + 1]] = m
+        mem_off = np.zeros(G + 1, np.int64)
+        for g in range(G):
+            m = members[g]
+            mem_off[g + 1] = mem_off[g] + (0 if m is None else m.size)
+        mem = np.zeros(int(mem_off[-1]), np.int64)
+        for g in range(G):
+            m = members[g]
+            if m is not None and m.size:
+                mem[mem_off[g]:mem_off[g + 1]] = m
 
-    max_id = int(index.max()) if G else 0
-    id2row = np.full(max_id + 1, -1, np.int64)
-    id2row[index] = np.arange(G, dtype=np.int64)
+        max_id = int(index.max()) if G else 0
+        id2row = np.full(max_id + 1, -1, np.int64)
+        id2row[index] = np.arange(G, dtype=np.int64)
 
-    igrp = np.zeros(n_particles, np.int32)
-    n_sub = np.zeros(n_particles, np.int32)
-    n_ign = np.zeros(n_particles, np.int32)
-    slurped_own = np.zeros(G, np.uint8)
-    counters = np.zeros(2, np.int64)
+        igrp = np.zeros(n_particles, np.int32)
+        n_sub = np.zeros(n_particles, np.int32)
+        n_ign = np.zeros(n_particles, np.int32)
+        slurped_own = np.zeros(G, np.uint8)
+        counters = np.zeros(2, np.int64)
 
-    rc = lib.so_conflict_pass(
-        G, _ptr(index, ctypes.c_int32), _ptr(pos, ctypes.c_float),
-        _ptr(mvir, ctypes.c_float), _ptr(rvir, ctypes.c_float),
-        _ptr(code, ctypes.c_int32), _ptr(order, ctypes.c_int64),
-        _ptr(mem_off, ctypes.c_int64), _ptr(mem, ctypes.c_int64),
-        n_particles, _ptr(id2row, ctypes.c_int64), max_id,
-        _ptr(igrp, ctypes.c_int32), _ptr(n_sub, ctypes.c_int32),
-        _ptr(n_ign, ctypes.c_int32), _ptr(slurped_own, ctypes.c_uint8),
-        _ptr(counters, ctypes.c_int64))
+    with span("conflicts.walk"):
+        rc = lib.so_conflict_pass(
+            G, _ptr(index, ctypes.c_int32), _ptr(pos, ctypes.c_float),
+            _ptr(mvir, ctypes.c_float), _ptr(rvir, ctypes.c_float),
+            _ptr(code, ctypes.c_int32), _ptr(order, ctypes.c_int64),
+            _ptr(mem_off, ctypes.c_int64), _ptr(mem, ctypes.c_int64),
+            n_particles, _ptr(id2row, ctypes.c_int64), max_id,
+            _ptr(igrp, ctypes.c_int32), _ptr(n_sub, ctypes.c_int32),
+            _ptr(n_ign, ctypes.c_int32), _ptr(slurped_own, ctypes.c_uint8),
+            _ptr(counters, ctypes.c_int64))
     if rc != 0:
         raise RuntimeError(f"so_conflict_pass failed: rc={rc}")
     return dict(igrp=igrp, n_subsumed=n_sub, n_ignored=n_ign, mvir=mvir,
@@ -156,12 +160,13 @@ def stats_pass_native(mass, igrp, n_subsumed, n_ignored):
     nign = np.ascontiguousarray(n_ignored, np.int32)
     fout = np.zeros(5, np.float64)
     iout = np.zeros(4, np.int64)
-    rc = lib.so_stats_pass(mass.shape[0], _ptr(mass, ctypes.c_float),
-                           _ptr(igrp, ctypes.c_int32),
-                           _ptr(nsub, ctypes.c_int32),
-                           _ptr(nign, ctypes.c_int32),
-                           _ptr(fout, ctypes.c_double),
-                           _ptr(iout, ctypes.c_int64))
+    with span("stats.native"):
+        rc = lib.so_stats_pass(mass.shape[0], _ptr(mass, ctypes.c_float),
+                               _ptr(igrp, ctypes.c_int32),
+                               _ptr(nsub, ctypes.c_int32),
+                               _ptr(nign, ctypes.c_int32),
+                               _ptr(fout, ctypes.c_double),
+                               _ptr(iout, ctypes.c_int64))
     if rc != 0:
         raise RuntimeError(f"so_stats_pass failed: rc={rc}")
     return fout, iout

@@ -29,12 +29,14 @@ rows are merged, P * K slots a halo.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from .grid import CellGrid, morton_encode
-from .piece_gather import piece_descriptors, piece_gather_rows
+from .piece_gather import PIECE_W, piece_descriptors, piece_gather_rows
 from .slab_gather import (chunk_descriptors, slab_gather_rows,
                           slab_gather_sorted_rows, sort_rows)
 
@@ -201,20 +203,90 @@ def ragged_ball_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
                         overflow=overflow)
 
 
-def _slotted(grid: CellGrid, ranges, centers, r2_mask, K: int, chans: tuple,
-             want_idx: bool):
-    """(d2, channels, idx) in slot order from cell_ranges' output: K1 for
-    K <= PIECE_K_MIN, else K3."""
+def _spans(layer: str | None):
+    """``part -> span "<layer>.<part>"``, or no span without a layer."""
+    if layer is None:
+        return lambda part: nullcontext()
+    return lambda part: profiling.span(f"{layer}.{part}")
+
+
+def count_gather_bytes(kernel: str, grid: CellGrid, ranges, K: int,
+                       nchan: int, want_idx: bool, sorted_form: bool = False):
+    """While profiling keeps device counts (start_recording with
+    device_counts), add one K1 or K3 launch's bytes to the device count
+    "<kernel>.bytes" ("K1" or "K3"), from cell_ranges' output (st, cnt,
+    q) with no sync. The reckoning is the bytes bound of
+    chip_smoke.gather_bound over gather_reads:
+
+    - 12 B (the x, y, z rows) for each distinct payload row that the
+      launch's runs put at slots below K (row st + i of a run sits at slot
+      q + st % chunk + i), counted once however many of its balls hold it;
+    - 4 B for each int32 field of each live descriptor (K1: a0, lo, hi of
+      each of a halo's chunks; K3: src, t0, v, lo, hi of each of its
+      pieces of PIECE_W chunks) and 4 B for each halo's count;
+    - every output slot written once: 4 B x B x K for d2, for each channel
+      and for idx if asked;
+    - K1's sorted form: the (B,) int64 in-ball counts, 8 B each.
+
+    The channels' payload rows read at in-ball rows are left out: which
+    rows lie in a ball shows only in the kernel's output. So the count is
+    a floor of what the launch must move, and a share of the roofline
+    from it cannot read high. The counting is its own span, gather.bytes,
+    so what it costs is not read as the gather's."""
+    if not profiling.counting():
+        return
+    with profiling.span("gather.bytes"):
+        _count_bytes(kernel, grid, ranges, K, nchan, want_idx, sorted_form)
+
+
+def _count_bytes(kernel, grid, ranges, K, nchan, want_idx, sorted_form):
     st, cnt, q, _ = ranges
-    soa = grid.soa8t
-    if K > PIECE_K_MIN:
-        desc = piece_descriptors(st, cnt, q, K, grid.chunk)
-        rows = piece_gather_rows
+    B = st.shape[0]
+    chunk = grid.chunk
+    off = st % chunk
+    reach = torch.clamp(torch.minimum(cnt, K - q - off), min=0)
+    # distinct rows: the union of the runs [st, st + reach), swept in
+    # order of their starts (an empty run sits at 0 and adds nothing)
+    lo = torch.where(reach > 0, st, torch.zeros_like(st)).flatten()
+    hi = lo + reach.flatten()
+    order = torch.argsort(lo)
+    lo, hi = lo[order], hi[order]
+    seen = torch.cat([hi.new_zeros(1), torch.cummax(hi, 0).values[:-1]])
+    rows = torch.clamp(hi - torch.maximum(lo, seen), min=0).sum()
+    nch = torch.where(cnt > 0, (off + cnt + (chunk - 1)) // chunk,
+                      torch.zeros_like(cnt))
+    NC = (K + chunk) // chunk
+    if kernel == "K3":
+        per_desc = 5
+        n_desc = torch.clamp(((nch + (PIECE_W - 1)) // PIECE_W).sum(dim=1),
+                             max=NC)
     else:
-        desc = chunk_descriptors(st, cnt, q, K, grid.chunk)
-        rows = slab_gather_rows
-    return rows(soa, *desc, centers, grid.period, r2_mask, K, grid.chunk,
-                chans, want_idx)
+        per_desc = 3
+        n_desc = torch.clamp(nch.sum(dim=1), max=NC)
+    fixed = (4 * B + 4 * B * K * (1 + nchan + int(want_idx))
+             + (8 * B if sorted_form else 0))
+    profiling.count_on_device(f"{kernel}.bytes",
+                              12 * rows + 4 * per_desc * n_desc.sum() + fixed)
+
+
+def _descriptors(grid: CellGrid, ranges, K: int):
+    """(kernel, descriptors) of a slotted launch from cell_ranges' output:
+    K1 for K <= PIECE_K_MIN, else K3."""
+    st, cnt, q, _ = ranges
+    if K > PIECE_K_MIN:
+        return "K3", piece_descriptors(st, cnt, q, K, grid.chunk)
+    return "K1", chunk_descriptors(st, cnt, q, K, grid.chunk)
+
+
+def _slotted(grid: CellGrid, ranges, kernel: str, desc, centers, r2_mask,
+             K: int, chans: tuple, want_idx: bool):
+    """(d2, channels, idx) in slot order: the launch of _descriptors'
+    kernel."""
+    rows = piece_gather_rows if kernel == "K3" else slab_gather_rows
+    out = rows(grid.soa8t, *desc, centers, grid.period, r2_mask, K,
+               grid.chunk, chans, want_idx)
+    count_gather_bytes(kernel, grid, ranges, K, len(chans), want_idx)
+    return out
 
 
 def footprint(grid: CellGrid, level: int, centers, radii, S: int):
@@ -232,25 +304,34 @@ POSITION = ("x", "y", "z")
 
 
 def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
-                    K: int, S: int, chans: tuple = (), want_idx: bool = False):
+                    K: int, S: int, chans: tuple = (), want_idx: bool = False,
+                    layer: str | None = None):
     """(d2, channels, idx, overflow) in the kernels' slot order, no row
     sort: K1 for K <= PIECE_K_MIN, else K3. ``chans`` are kernel channel
     names (slab_gather.CHANNEL_ROWS) or POSITION's, which each shard of a
-    sharded grid resolves from its own rows."""
+    sharded grid resolves from its own rows. ``layer`` opens the spans
+    "<layer>.ranges" (cell_ranges and the descriptors) and
+    "<layer>.gather" (the launch; the whole merged gather on a sharded
+    grid)."""
+    span = _spans(layer)
     if not isinstance(grid, CellGrid):
-        return grid.unsorted_gather(level, centers, radii, r2_mask, K, S,
-                                    chans, want_idx)
-    ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                         align=grid.chunk)
+        with span("gather"):
+            return grid.unsorted_gather(level, centers, radii, r2_mask, K, S,
+                                        chans, want_idx)
+    with span("ranges"):
+        ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
+                             align=grid.chunk)
+        kernel, desc = _descriptors(grid, ranges, K)
     kchans = tuple(c for c in chans if c not in POSITION)
-    d2, ch, idx = _slotted(grid, ranges, centers, r2_mask, K, kchans,
-                           want_idx or len(kchans) < len(chans))
-    if len(kchans) < len(chans):
-        kcols = iter(ch.unbind(1))
-        ch = torch.stack([grid.row_values(idx, POSITION.index(c))
-                          if c in POSITION else next(kcols) for c in chans],
-                         dim=1)
-        idx = idx if want_idx else None
+    with span("gather"):
+        d2, ch, idx = _slotted(grid, ranges, kernel, desc, centers, r2_mask,
+                               K, kchans, want_idx or len(kchans) < len(chans))
+        if len(kchans) < len(chans):
+            kcols = iter(ch.unbind(1))
+            ch = torch.stack([grid.row_values(idx, POSITION.index(c))
+                              if c in POSITION else next(kcols)
+                              for c in chans], dim=1)
+            idx = idx if want_idx else None
     return d2, ch, idx, ranges[3] > K
 
 
@@ -262,7 +343,8 @@ class SlabGatherResult(NamedTuple):
 
 
 def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
-                K: int, S: int, channels: tuple = ("mass",)) -> SlabGatherResult:
+                K: int, S: int, channels: tuple = ("mass",),
+                layer: str | None = None) -> SlabGatherResult:
     """Sorted (d2, channel...) stacks per halo: K1's sorted form up to
     SORTED_K_MAX slots, else the slotted gather and a stable row sort
     (slab_gather.sort_rows). Either way the order is the stable sort's
@@ -272,10 +354,15 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     gives a (B, K, 3) m*v stack, "idx" the exact int32 source row (-1
     off-ball), "orig" the source particle's int64 index in file order (-1
     off-ball; each shard of a sharded grid resolves it from its own rows).
+    ``layer`` opens the spans "<layer>.ranges" (cell_ranges and the
+    descriptors), "<layer>.gather" (the launch; the whole merged gather on
+    a sharded grid) and "<layer>.sort" (sort_rows, where it runs).
     """
+    span = _spans(layer)
     if not isinstance(grid, CellGrid):
-        return grid.slab_gather(level, centers, radii, r2_mask, K, S,
-                                channels)
+        with span("gather"):
+            return grid.slab_gather(level, centers, radii, r2_mask, K, S,
+                                    channels)
     kernel_chans = []
     for ch in channels:
         if ch == "mv":
@@ -286,17 +373,27 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
             raise ValueError(ch)
     kernel_chans = tuple(kernel_chans)
     want_idx = "idx" in channels or "orig" in channels
-    ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                         align=grid.chunk)
-    if K <= min(SORTED_K_MAX, PIECE_K_MIN):    # K3's tiers stay K3's
-        st, cnt, q, _ = ranges
-        d2_s, ch, idx, n_in = slab_gather_sorted_rows(
-            grid.soa8t, *chunk_descriptors(st, cnt, q, K, grid.chunk),
-            centers, grid.period, r2_mask, K, grid.chunk, kernel_chans,
-            want_idx)
+    in_sorted_form = K <= min(SORTED_K_MAX, PIECE_K_MIN)  # K3's stay K3's
+    with span("ranges"):
+        ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
+                             align=grid.chunk)
+        if in_sorted_form:
+            desc = chunk_descriptors(*ranges[:3], K, grid.chunk)
+        else:
+            kernel, desc = _descriptors(grid, ranges, K)
+    if in_sorted_form:
+        with span("gather"):
+            d2_s, ch, idx, n_in = slab_gather_sorted_rows(
+                grid.soa8t, *desc, centers, grid.period, r2_mask, K,
+                grid.chunk, kernel_chans, want_idx)
+            count_gather_bytes("K1", grid, ranges, K, len(kernel_chans),
+                               want_idx, sorted_form=True)
     else:
-        d2_s, ch, idx, n_in = sort_rows(*_slotted(
-            grid, ranges, centers, r2_mask, K, kernel_chans, want_idx))
+        with span("gather"):
+            rows = _slotted(grid, ranges, kernel, desc, centers, r2_mask, K,
+                            kernel_chans, want_idx)
+        with span("sort"):
+            d2_s, ch, idx, n_in = sort_rows(*rows)
     out = []
     i = 0
     for c in channels:

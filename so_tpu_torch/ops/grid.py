@@ -21,6 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..profiling import span
+
 # default slab chunk and its only alternative (choose_chunk)
 CHUNK = 256
 TARGET_OCCUPANCY = 24   # mean particles per finest cell (choose_m)
@@ -206,43 +208,53 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     to choose_m and choose_chunk of the particle count. Rows where the
     bool mask ``valid`` is False (a particle shard's padding) get a Morton
     code past every cell: they sort to the tail and no cell, so no gather,
-    reaches them.
+    reaches them. Spans: grid.upload (the host arrays to the device),
+    grid.sort (Morton codes, the stable argsort, the level starts) and
+    grid.payload (the payload and phi in sorted order).
     """
     device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
-    um = detect_uniform_mass(mass)
-    pos = torch.as_tensor(np.asarray(pos, np.float32), device=device)
-    n = pos.shape[0]
-    mass = torch.as_tensor(np.asarray(mass, np.float32), device=device)
-    vel = (torch.zeros((n, 3), **f32) if vel is None
-           else torch.as_tensor(np.asarray(vel, np.float32), device=device))
-    ptype = (torch.zeros(n, dtype=torch.int32, device=device) if ptype is None
-             else torch.as_tensor(np.asarray(ptype, np.int32), device=device))
-    mark = (torch.zeros(n, dtype=torch.bool, device=device) if mark is None
-            else torch.as_tensor(np.asarray(mark, bool), device=device))
-    period = torch.as_tensor(np.asarray(period, np.float32), device=device)
-    center = torch.as_tensor(np.asarray(center, np.float32), device=device)
+    with span("grid.upload"):
+        um = detect_uniform_mass(mass)
+        pos = torch.as_tensor(np.asarray(pos, np.float32), device=device)
+        n = pos.shape[0]
+        mass = torch.as_tensor(np.asarray(mass, np.float32), device=device)
+        vel = (torch.zeros((n, 3), **f32) if vel is None else
+               torch.as_tensor(np.asarray(vel, np.float32), device=device))
+        ptype = (torch.zeros(n, dtype=torch.int32, device=device)
+                 if ptype is None else
+                 torch.as_tensor(np.asarray(ptype, np.int32), device=device))
+        mark = (torch.zeros(n, dtype=torch.bool, device=device)
+                if mark is None else
+                torch.as_tensor(np.asarray(mark, bool), device=device))
+        period = torch.as_tensor(np.asarray(period, np.float32),
+                                 device=device)
+        center = torch.as_tensor(np.asarray(center, np.float32),
+                                 device=device)
     lo = center - period * 0.5
     if m is None:
         m = choose_m(n)
     if chunk is None:
         chunk = choose_chunk(n, m)
 
-    nc = 1 << m
-    u = pos - lo
-    u = u - torch.floor(u / period) * period      # wrap to [0, period)
-    ic = torch.clip((u / period * nc).to(torch.int32), 0, nc - 1)
-    code = morton_encode(ic[:, 0], ic[:, 1], ic[:, 2])
-    if valid is not None:
-        code = torch.where(torch.as_tensor(np.asarray(valid, bool),
-                                           device=device),
-                           code, SENTINEL_CODE)
-    perm = torch.argsort(code, stable=True)
-    starts = _level_starts(code[perm], m)
-    soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],
-                       mark[perm], chunk=chunk)
-    phi_s = (None if phi is None else
-             torch.as_tensor(np.asarray(phi, np.float32), device=device)[perm])
+    with span("grid.sort"):
+        nc = 1 << m
+        u = pos - lo
+        u = u - torch.floor(u / period) * period      # wrap to [0, period)
+        ic = torch.clip((u / period * nc).to(torch.int32), 0, nc - 1)
+        code = morton_encode(ic[:, 0], ic[:, 1], ic[:, 2])
+        if valid is not None:
+            code = torch.where(torch.as_tensor(np.asarray(valid, bool),
+                                               device=device),
+                               code, SENTINEL_CODE)
+        perm = torch.argsort(code, stable=True)
+        starts = _level_starts(code[perm], m)
+    with span("grid.payload"):
+        soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],
+                           mark[perm], chunk=chunk)
+        phi_s = (None if phi is None else
+                 torch.as_tensor(np.asarray(phi, np.float32),
+                                 device=device)[perm])
     return CellGrid(m, lo, period, soa8t, perm, starts, chunk=chunk,
                     uniform_mass=um, phi=phi_s)
 

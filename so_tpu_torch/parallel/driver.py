@@ -404,11 +404,12 @@ def run_so_distributed(snapshot_path: str, catalog, params,
     from .. import checkpoint
     from ..engine.pipeline import _post_solve
     from ..engine.solver import solve_rvir
+    from ..profiling import span
 
     transport = transport or TorchTransport()
     pid, nproc = transport.pid, transport.nproc
     _, timer, trace = _rank_run(params, transport)
-    with trace:
+    with trace, span("run_so_distributed"):
         pset, sgrid, centers, rgtp, start, count, n_global = _dist_setup(
             snapshot_path, catalog, params, standard, parts_per_host,
             mark_mask, timer, transport)
@@ -467,11 +468,12 @@ def run_so_multi_distributed(snapshot_path: str, catalog, params,
     from ..engine.multi import solve_rvir_multi
     from ..engine.pipeline import _post_solve
     from ..engine.solver import SolveResult
+    from ..profiling import span
 
     transport = transport or TorchTransport()
     _, timer, trace = _rank_run(params, transport)
     runs: list = []
-    with trace:
+    with trace, span("run_so_multi_distributed"):
         pset, sgrid, centers, rgtp, start, count, n_global = _dist_setup(
             snapshot_path, catalog, params, standard, parts_per_host,
             mark_mask, timer, transport)
