@@ -136,7 +136,7 @@ script exits nonzero:
      to tests/test_torch_golden.py's rules (catalogs to float tolerance,
      .sogrp/.sosub/.soign exactly, .sogtp field by field); the set runs at
      the default routes, then with gather.PIECE_K_MIN at 512 (K3 and
-     sort_rows on every gather above 512 slots; K3 must run). One
+     sort_in_ball on every gather above 512 slots; K3 must run). One
      [golden] line per scenario and route: seconds and launches.
  18. so_tpu at scale: the card against so_tpu's own outputs, written on
      the CPU by tests/make_torch_refs.py into tests/torch_refs (the
@@ -1947,7 +1947,7 @@ def phase_goldens():
     "cuda", compared by tests/test_torch_golden.py's rules: catalogs to
     float tolerance, .sogrp/.sosub/.soign exactly, .sogtp field by field.
     The set runs twice: at the default routes, then with
-    gather.PIECE_K_MIN at 512, so K3 and sort_rows serve every gather
+    gather.PIECE_K_MIN at 512, so K3 and sort_in_ball serve every gather
     above 512 slots; K3 must run in that pass. Each scenario must launch
     K1's sorted form at the default routes, K1 or K3 at 512."""
     from so_tpu_torch.ops import gather
@@ -2698,7 +2698,7 @@ def phase_surface(box):
         the solved halos, host_mv rebuilt from the shards, against the
         CellGrid's engine.extract_members (lists equal but for the order
         within equal d2, vcm bit for bit); again with PIECE_K_MIN at 512
-        (K3 and sort_rows);
+        (K3 and sort_in_ball);
       - engine.solver.scan_sorted at (16384, 4096), the sorted hits of
         every halo at the solve's second ladder radius (rung 1 + DK; at
         rung 1 the particle past j* mostly lies outside), capped at the

@@ -27,7 +27,8 @@ from ..ops.gather import footprint, slab_gather
 from ..ops.ieee import sqrt_rn
 from ..ops.seqsum import seq_cumsum
 from .solver import (FUSED_SLOT_BUDGET, _chunk_for, _k_limit,
-                     _pick_level_span, _uniform_cum, first_true)
+                     _pick_level_span, _row_ladder, _uniform_cum,
+                     first_true)
 
 NVCIRC = 8          # kd2.h:10
 NMASSPROFILE = 16   # kd2.h:12
@@ -62,20 +63,20 @@ class DerivedResult:
 
 def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
                         fball, n_members: int, species: tuple, grav: float,
-                        uniform_m: float | None = None) -> dict:
+                        uniform_m: float | None = None, lad=None) -> dict:
     """All kdVcirc/kdMassProfile quantities from distance-sorted hits.
     ``mass_s`` may be None on uniform-mass grids (the ladder gives every
     cumulative mass; species profiles sample it at exact selection
-    counts). ``grav`` must be f32-representable."""
+    counts; ``lad`` as in solver._uniform_cum). ``grav`` must be
+    f32-representable."""
     B, K = d2_s.shape
     dev = d2_s.device
     slot = torch.arange(K, device=dev)[None, :]
     valid = slot < n_in[:, None]
     rows = torch.arange(B, device=dev)
     zero = torch.zeros((), device=dev)
-    lad = None
     if uniform_m is not None:
-        cum, lad = _uniform_cum(uniform_m, K, n_in, valid)
+        cum, lad = _uniform_cum(uniform_m, K, n_in, valid, lad)
     else:
         # C-order f32 (kd2.c:521, 543), K2
         cum = seq_cumsum(mass_s, n_valid=n_in)
@@ -124,7 +125,7 @@ def derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir, mvir,
     profs = {}
     for sp in species:
         sel = mark_s if sp == MARK else (ptype_s == sp)
-        if lad is not None:
+        if uniform_m is not None:
             # ladder at the exact count of selected hits in the prefix
             selcnt = torch.cumsum((sel & valid).long(), dim=1)
             bins = []
@@ -162,7 +163,7 @@ def _derived_stage(grid, level: int, K: int, S: int, n_members: int,
     der = derived_from_sorted(sg.d2, None if um is not None
                               else sg.channels[0], ptype_s, mark_s, sg.n_in,
                               rvir, mvir, fball, n_members, species, grav,
-                              uniform_m=um)
+                              uniform_m=um, lad=_row_ladder(grid, K))
     return der, sg.overflow
 
 

@@ -28,6 +28,7 @@ from ..profiling import counts, span
 from .derived import (DerivedResult, ball_rounds, derived_from_sorted,
                       probe_capacities)
 from .members import vcm_from_members
+from .solver import _row_ladder
 
 
 def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
@@ -53,7 +54,7 @@ def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
     orig = sg.channels[-1]
     der = derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, sg.n_in, rvir,
                               mvir, fball, n_members, species, grav,
-                              uniform_m=um)
+                              uniform_m=um, lad=_row_ladder(grid, K))
     # interior members: the first j sorted rows, all at d2 <= d2cut (the
     # solve's d2 at row j - 1 lies inside its own Rvir < 2*Rvir) — a PREFIX
     # of each row, so a boolean-mask compaction keeps halo-major,

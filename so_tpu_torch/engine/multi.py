@@ -26,7 +26,7 @@ from ..ops.grid import CellGrid
 from ..profiling import counts, span
 from . import solver
 from .solver import (DK, SOLVE_SLOT_BUDGET, _chunk_for, _dispatch_chunks,
-                     _k_limit, _pick_level_span, _wbox_chunk,
+                     _k_limit, _pick_level_span, _row_ladder, _wbox_chunk,
                      _whole_box_stage, count_dispatch, enclosed_density,
                      ladder_radius, pack_block, rvir_ladder,
                      rvir_reference_bits, scan_verdict, survey_pass)
@@ -57,7 +57,8 @@ def _multi_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
                     layer="solve")
     with span("solve.scan"):
         mass_s = None if um is not None else g.channels[0]
-        cum, rho = enclosed_density(g.d2, mass_s, g.n_in, um)
+        cum, rho = enclosed_density(g.d2, mass_s, g.n_in, um,
+                                    _row_ladder(grid, K))
         outs = [scan_verdict(g.d2, mass_s, g.n_in, cum, rho, thr, n_members,
                              um)
                 for thr in thresholds]

@@ -114,13 +114,26 @@ def _mass_ladder_on(m: float, K: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_mass_ladder(m, K), device=device)
 
 
+def _row_ladder(grid, K: int):
+    """The ladder of a dispatch at capacity K on a uniform-mass grid (None
+    on general masses): grid.parts * K entries, the widest row a gather
+    returns, whose prefix serves the narrower rows of the in-ball sort, so
+    the cache keeps one entry a capacity."""
+    um = grid.uniform_mass
+    return (None if um is None
+            else _mass_ladder_on(um, grid.parts * K, grid.device))
+
+
 def _uniform_cum(uniform_m: float, K: int, n_in, live, lad=None):
     """Serial-f32 cumulative mass over bit-identical-mass sorted rows:
     cum(i) = ladder[min(i, n_in-1)] (adding the zero pad never changes a
-    serial accumulator). ``lad`` is a K-long ladder to use instead of the
-    cached one. Returns (cum, ladder)."""
+    serial accumulator). ``lad`` is a ladder of at least K entries to use
+    instead of the cached one (its first K are the K-long ladder: rows
+    narrower than the capacity pass the capacity's). Returns (cum,
+    ladder)."""
     if lad is None:
         lad = _mass_ladder_on(uniform_m, K, n_in.device)
+    lad = lad[:K]
     last = torch.where(n_in > 0, lad[torch.clamp(n_in - 1, min=0)],
                        torch.zeros((), device=n_in.device))
     return torch.where(live, lad[None, :], last[:, None]), lad

@@ -11,7 +11,8 @@
      tiers; the same function and slot layout, so the same bits). Where
      the rows are wanted sorted by distance (slab_gather), K1's sorted
      form emits them so up to SORTED_K_MAX slots; longer rows are gathered
-     slotted and sorted by torch.sort.
+     slotted, and their in-ball slots sorted by one keyed torch.sort into
+     rows as wide as the dispatch's widest ball (slab_gather.sort_in_ball).
 
 Capacity K and cube side S are per-dispatch values; the host escalates K
 when a ball overflows, mirroring the reference's nnList regrow.
@@ -38,7 +39,7 @@ from .. import profiling
 from .grid import CellGrid, morton_encode
 from .piece_gather import PIECE_W, piece_descriptors, piece_gather_rows
 from .slab_gather import (chunk_descriptors, slab_gather_rows,
-                          slab_gather_sorted_rows, sort_rows)
+                          slab_gather_sorted_rows, sort_in_ball)
 
 # Dispatches of more slots than this go through K3, the rest through K1:
 # so_tpu's K_SLAB_MAX, the capacity where it leaves its per-chunk kernel.
@@ -336,7 +337,7 @@ def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
 
 
 class SlabGatherResult(NamedTuple):
-    d2: torch.Tensor          # (B, K) sorted ascending; +inf beyond n_in
+    d2: torch.Tensor          # (B, W) sorted ascending; +inf beyond n_in
     channels: tuple           # requested channels, sorted alongside d2
     n_in: torch.Tensor        # (B,) i64 hits with d2 <= r2_mask
     overflow: torch.Tensor    # (B,) bool candidate footprint exceeded K
@@ -346,17 +347,20 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
                 K: int, S: int, channels: tuple = ("mass",),
                 layer: str | None = None) -> SlabGatherResult:
     """Sorted (d2, channel...) stacks per halo: K1's sorted form up to
-    SORTED_K_MAX slots, else the slotted gather and a stable row sort
-    (slab_gather.sort_rows). Either way the order is the stable sort's
-    over the kernels' slot layout, on the card and on the CPU.
+    SORTED_K_MAX slots, in rows of W = K slots; else the slotted gather and
+    the sort of its in-ball slots (slab_gather.sort_in_ball), in rows of
+    W <= K slots, the least power of two that holds the widest ball.
+    Either way the first n_in slots of a row are in the stable sort's
+    order over the kernels' slot layout, on the card and on the CPU, and
+    the rest are pads; callers read W from the rows.
 
     ``channels`` is drawn from {"mass", "mv", "meta", "idx", "orig"}: "mv"
-    gives a (B, K, 3) m*v stack, "idx" the exact int32 source row (-1
+    gives a (B, W, 3) m*v stack, "idx" the exact int32 source row (-1
     off-ball), "orig" the source particle's int64 index in file order (-1
     off-ball; each shard of a sharded grid resolves it from its own rows).
     ``layer`` opens the spans "<layer>.ranges" (cell_ranges and the
     descriptors), "<layer>.gather" (the launch; the whole merged gather on
-    a sharded grid) and "<layer>.sort" (sort_rows, where it runs).
+    a sharded grid) and "<layer>.sort" (sort_in_ball, where it runs).
     """
     span = _spans(layer)
     if not isinstance(grid, CellGrid):
@@ -393,7 +397,7 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
             rows = _slotted(grid, ranges, kernel, desc, centers, r2_mask, K,
                             kernel_chans, want_idx)
         with span("sort"):
-            d2_s, ch, idx, n_in = sort_rows(*rows)
+            d2_s, ch, idx, n_in = sort_in_ball(*rows)
     out = []
     i = 0
     for c in channels:

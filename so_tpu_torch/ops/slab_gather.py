@@ -25,12 +25,17 @@ count: d2 (B, K) ascending with +inf from n_in on, a list of (B, K)
 channels and idx permuted alongside (0 and -1 from n_in on), and n_in (B,)
 i64. On the card a row's keys must fit one block's shared memory (K <=
 2^14, else the launch fails; ops/gather.SORTED_K_MAX routes by it).
+
+Longer rows are gathered slotted and sorted by ``sort_in_ball``: the
+sorted form's order over the in-ball slots only, in rows as wide as the
+widest ball of the dispatch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..profiling import counts
 from . import _cuda
 
 # payload row feeding each kernel channel name; rows 4-6 are raw
@@ -147,6 +152,49 @@ def sort_rows(d2, ch, idx):
     chans = [torch.gather(ch[:, i], 1, order) for i in range(ch.shape[1])]
     return (d2_s, chans, None if idx is None else torch.gather(idx, 1, order),
             n_in)
+
+
+def sort_in_ball(d2, ch, idx):
+    """sort_rows' rows over the in-ball slots only, in rows as wide as the
+    widest ball: (d2 (B, W) ascending with +inf from n_in on, the list of
+    (B, W) channels and idx (0 and -1 from n_in on), n_in (B,) i64), W the
+    least power of two >= max n_in, at least 1 and at most K.
+
+    The in-ball slots are compacted in slot order and keyed row << 32 |
+    d2 bits (a finite d2 is >= +0, so its int32 bits order as its value);
+    one stable sort of the keys keeps equal d2 of a row in slot order, so
+    every row's first n_in entries are sort_rows' bit for bit. The total
+    and the largest n_in, which size the compaction and the rows, are the
+    one host read. Counts sort.slots (B * K) and sort.keys (the in-ball
+    slots sorted)."""
+    B, K = d2.shape
+    dev = d2.device
+    # off-ball slots hold +inf, and an int32 mask sums with no cast
+    in_ball = torch.lt(d2, torch.inf, out=torch.empty(d2.shape,
+                                                      dtype=torch.int32,
+                                                      device=dev))
+    n_in = in_ball.sum(dim=1, dtype=torch.int32).long()
+    total, n_max = torch.stack([n_in.sum(), n_in.max()]).tolist()
+    counts[("sort.slots",)] += B * K
+    counts[("sort.keys",)] += total
+    W = min(K, 1 << max(n_max - 1, 0).bit_length())
+    src = torch.nonzero_static(in_ball.view(-1), size=total).view(-1)
+    row = torch.div(src, K, rounding_mode="floor")
+    slot = src - row * K
+    key = (row << 32) | d2[row, slot].view(torch.int32).long()
+    key, order = torch.sort(key, stable=True)
+    row, slot = key >> 32, slot[order]
+    start = torch.cumsum(n_in, 0) - n_in
+    col = torch.arange(total, device=dev) - start[row]
+    d2_s = torch.full((B, W), torch.inf, device=dev)
+    d2_s[row, col] = (key & 0xFFFFFFFF).int().view(torch.float32)
+    ch_s = torch.zeros((ch.shape[1], B, W), device=dev)
+    ch_s[:, row, col] = ch[row, :, slot].T
+    idx_s = None
+    if idx is not None:
+        idx_s = torch.full((B, W), -1, dtype=idx.dtype, device=dev)
+        idx_s[row, col] = idx[row, slot]
+    return d2_s, list(ch_s.unbind(0)), idx_s, n_in
 
 
 def slab_gather_sorted_plain(soa8t, a0, lo, hi, n_total, centers, period, r2,

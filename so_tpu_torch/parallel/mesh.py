@@ -105,6 +105,14 @@ def _global_rows(idx, offset: int):
     return torch.where(idx >= 0, idx + offset, idx)
 
 
+def _pad_slots(t, K: int, fill):
+    """A (B, W) or (B, W, 3) row tensor padded with ``fill`` to K slots."""
+    if t.shape[1] == K:
+        return t
+    pad = t.new_full((t.shape[0], K - t.shape[1]) + t.shape[2:], fill)
+    return torch.cat([t, pad], dim=1)
+
+
 def _take(ch, order):
     """A (B, W) or (B, W, 3) channel permuted along its slots."""
     return torch.take_along_dim(ch, order if ch.dim() == 2
@@ -213,14 +221,19 @@ class ShardedGrid:
     def slab_gather(self, level, centers, radii, r2_mask, K, S, channels):
         """gather.slab_gather merged over the shards: (B, P * K) rows sorted
         by d2, ties in (shard, slot) order; idx in the sharded grid's
-        rows."""
+        rows. A shard's rows narrower than K (the in-ball sort's) are
+        padded back to K slots, so every halo slice and rank merges rows
+        of one width."""
         nch = len(channels)
 
         def shard(g, offset, c, r, r2):
             sg = gather.slab_gather(g, level, c, r, r2, K, S, channels)
-            chans = [_global_rows(ch, offset) if name == "idx" else ch
+            chans = [_pad_slots(_global_rows(ch, offset) if name == "idx"
+                                else ch, K,
+                                -1 if name in ("idx", "orig") else 0)
                      for name, ch in zip(channels, sg.channels)]
-            return [sg.d2, sg.n_in, sg.overflow, *chans]
+            return [_pad_slots(sg.d2, K, torch.inf), sg.n_in, sg.overflow,
+                    *chans]
 
         def merge(rows):
             d2, order = torch.sort(torch.cat([r[0] for r in rows], dim=1),

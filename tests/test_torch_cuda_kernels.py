@@ -541,6 +541,86 @@ def _fields(run, sp):
     return out
 
 
+@pytest.mark.parametrize("K", [1 << 15, 1 << 17], ids=["K1", "K3"])
+def test_sort_in_ball_cuda_matches_cpu(dev, K):
+    """gather.slab_gather above SORTED_K_MAX, at a capacity of the slotted
+    K1 (2^15 slots) and of K3 (2^17): the card's rows equal the CPU's bit
+    for bit, widths, duplicate particles' equal d2 and pads included; and
+    the card's sort_in_ball of its own slotted rows equals the CPU's
+    sort_in_ball of the same rows."""
+    from so_tpu_torch.engine.solver import _pick_level_span
+    from so_tpu_torch.ops import gather, piece_gather
+
+    rng, pos, mass, vel, ptype, mark = _box(13, 40000)
+    pos[100:140] = pos[100]                 # duplicates: equal d2
+    grids = {d: build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=4,
+                           device=d) for d in ("cuda", "cpu")}
+    B = 8
+    centers = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
+    centers[:3] = pos[100] + rng.normal(scale=0.01, size=(3, 3))
+    radii = rng.uniform(0.05, 0.15, B).astype(np.float32)
+    level, S = _pick_level_span(grids["cpu"], float(radii.max()))
+    channels = ("mass", "mv", "meta", "idx")
+    out = {}
+    for d, g in grids.items():
+        c, r = (torch.as_tensor(a, device=d) for a in (centers, radii))
+        k1, k3 = slab_gather.launches, piece_gather.launches
+        out[d] = gather.slab_gather(g, level, c, r, r * r, K, S, channels)
+        if d == "cuda":
+            assert (slab_gather.launches > k1) == (K <= gather.PIECE_K_MIN)
+            assert (piece_gather.launches > k3) == (K > gather.PIECE_K_MIN)
+            ranges = gather.cell_ranges(g, level, c, r, r * r, S,
+                                        align=g.chunk)
+            kernel, desc = gather._descriptors(g, ranges, K)
+            rows = gather._slotted(g, ranges, kernel, desc, c, r * r, K,
+                                   ("mass", "meta"), True)
+    got, want = out["cuda"], out["cpu"]
+    n_in = want.n_in.numpy()
+    assert n_in.max() > 1000 and got.d2.shape[1] < K
+    np.testing.assert_array_equal(got.n_in.cpu().numpy(), n_in)
+    assert got.d2.shape == want.d2.shape
+    assert got.d2.cpu().numpy().tobytes() == want.d2.numpy().tobytes()
+    for a, b in zip(got.channels, want.channels):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+    d2w = want.d2.numpy()
+    assert sum(int((np.diff(d2w[b, :n]) == 0).sum())
+               for b, n in enumerate(n_in)) >= 39
+    on_card = slab_gather.sort_in_ball(*rows)
+    on_cpu = slab_gather.sort_in_ball(*(t.cpu() for t in rows))
+    for a, b in zip((on_card[0], *on_card[1], *on_card[2:]),
+                    (on_cpu[0], *on_cpu[1], *on_cpu[2:])):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["general", "uniform"])
+def test_run_so_slotted_route_cuda_matches_default(dev, uniform):
+    """run_so on the card with every sorted gather on the slotted route
+    (SORTED_K_MAX = 0: the slotted kernels, then sort_in_ball's narrower
+    rows) equals the default run in every field and member list, on
+    general masses (K2) and on one mass (the capacity's ladder)."""
+    import dataclasses
+
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.ops import gather
+
+    ps, cat = _pipeline_box()
+    if uniform:
+        ps = dataclasses.replace(ps, mass=np.full(ps.n, np.float32(1.0 / ps.n),
+                                                  np.float32))
+    sp = (DARK, GAS, STAR)
+    g = run_so(ps, cat(), SOParams(species=sp, device="cuda"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gather, "SORTED_K_MAX", 0)
+        f0 = slab_gather.sorted_launches
+        u = run_so(ps, cat(), SOParams(species=sp, device="cuda"))
+        assert slab_gather.sorted_launches == f0
+    assert (g.solve.code == 0).any()
+    assert _fields(g, sp) == _fields(u, sp)
+
+
 def test_mesh_cuda_matches_run_so_and_cpu(dev):
     """run_so_sharded on a 1x4 mesh of one card (the particles in 4
     shards, every gather merged over them) runs K1's sorted form and K2,
@@ -768,7 +848,7 @@ def test_giant_route_cuda_matches_cpu(dev, monkeypatch):
 
 def test_extract_members_cuda_matches_cpu(dev, monkeypatch):
     """engine.extract_members with gather.PIECE_K_MIN at 512, so K3 and
-    sort_rows serve its balls: the card's member lists and vcm equal the
+    sort_in_ball serve its balls: the card's member lists and vcm equal the
     CPU's, with and without cap_hint."""
     from so_tpu_torch.engine import extract_members, solve_rvir
     from so_tpu_torch.ops import gather, piece_gather
@@ -796,7 +876,7 @@ def test_extract_members_cuda_matches_cpu(dev, monkeypatch):
 def test_extract_members_sharded_cuda_matches_cpu(dev, monkeypatch):
     """parallel.extract_members_sharded on a 1x2 mesh of the card (K1's
     sorted form per shard), then with gather.PIECE_K_MIN at 512 (K3 and
-    sort_rows): member lists and vcm equal the same call on a 1x2 CPU mesh
+    sort_in_ball): member lists and vcm equal the same call on a 1x2 CPU mesh
     and the CellGrid's extract_members on the card; host_mv is rebuilt
     from the shards."""
     from so_tpu_torch.engine import extract_members, solve_rvir

@@ -18,7 +18,7 @@ on the CPU.
 - solves and the pipeline with gather.PIECE_K_MIN lowered, so K3 serves
   the dispatches: so_tpu's code, Mvir, Rvir and j bit for bit, and every
   port output equal to its K1-only run; and a box whose largest ball needs
-  more than 2^14 slots (K3's descriptors and slab_gather.sort_rows on the
+  more than 2^14 slots (K3's descriptors and slab_gather.sort_in_ball on the
   path) against so_tpu.
 """
 
@@ -515,19 +515,19 @@ def big_ball_box():
                          ids=["lowered", "default"])
 def test_giant_route_above_2_14_matches_so_tpu(big_ball_box, kmin,
                                                monkeypatch):
-    """K3's descriptors and slab_gather.sort_rows at capacities the default
-    routes reach (2^15 and 2^17 slots): so_tpu's code, Mvir, Rvir and j
-    bit for bit, with PIECE_K_MIN lowered and at its default."""
+    """K3's descriptors and slab_gather.sort_in_ball at capacities the
+    default routes reach (2^15 and 2^17 slots): so_tpu's code, Mvir, Rvir
+    and j bit for bit, with PIECE_K_MIN lowered and at its default."""
     data, centers, rgtp, want = big_ball_box
     sorted_k = []
-    real_sort = gather.sort_rows
+    real_sort = gather.sort_in_ball
 
-    def sort_rows(*a):
+    def sort_in_ball(*a):
         sorted_k.append(a[0].shape[1])
         return real_sort(*a)
 
     calls = _counting(monkeypatch, kmin)
-    monkeypatch.setattr(gather, "sort_rows", sort_rows)
+    monkeypatch.setattr(gather, "sort_in_ball", sort_in_ball)
     grid = build_grid(data["pos"], data["mass"], m=3, device="cpu")
     got = solve_rvir(grid, centers, rgtp, 178.0, k0_cap=BIG_K0)
     assert len(calls) > 0 and min(calls) > max(kmin, 1 << 14)

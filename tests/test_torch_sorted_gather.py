@@ -8,7 +8,8 @@ fact that design rests on: the key's order is torch.sort(stable=True)'s
 order over the slot layout; rows grow with slots inside every halo; the
 bitonic network's index arithmetic sorts; and the plain version equals the
 slotted gather followed by a stable sort, and so_tpu's sorted gather (its
-Pallas kernel in interpret mode).
+Pallas kernel in interpret mode). Above the sorted form's capacity,
+sort_in_ball gives the same order over the in-ball slots, in narrower rows.
 """
 
 import os
@@ -367,12 +368,150 @@ def test_k1_wrappers_refuse_other_descriptors(grids):
             fn(pgrid.soa8t, *desc, torch.zeros((4, 6))[:, ::2], *tail[1:])
 
 
-# (e) the route by capacity ----------------------------------------------------
+# (e) the in-ball sort ---------------------------------------------------------
+
+def _pow2_width(n_max, K):
+    """sort_in_ball's row width: the least power of two >= n_max, at least
+    1 and at most K."""
+    w = 1
+    while w < n_max:
+        w *= 2
+    return min(w, K)
+
+
+def _check_prefix_and_pads(got, want, pads, want_pads=True):
+    """Rows of any width against the K-wide stable sort ``want`` (d2, list
+    of channels, n_in): each row's first n_in slots bit for bit, every
+    slot past them a pad (``pads``: one a channel), in ``want`` too unless
+    ``want_pads`` is False."""
+    d2, chans, n_in = got
+    wd2, wchans, wn_in = want
+    np.testing.assert_array_equal(np.asarray(n_in), np.asarray(wn_in))
+    assert len(chans) == len(wchans) == len(pads)
+    for b, n in enumerate(np.asarray(wn_in)):
+        _same_bits(d2[b, :n], wd2[b, :n])
+        assert np.isinf(d2[b, n:]).all() and np.isinf(wd2[b, n:]).all()
+        for g, w, pad in zip(chans, wchans, pads):
+            _same_bits(g[b, :n], w[b, :n])
+            assert (g[b, n:] == pad).all()
+            assert (w[b, n:] == pad).all() or not want_pads
+
+
+def _rows_case(case, B, K, rng):
+    """(d2, n_in) of a slotted output: in-ball d2 >= +0 anywhere in the
+    row, +inf elsewhere."""
+    pool = rng.uniform(0.0, 2.0, 40).astype(np.float32)      # few: ties
+    d2 = rng.choice(pool, (B, K)).astype(np.float32)
+    n_in = rng.integers(0, K // 3, B)
+    if case == "zeros":
+        d2[rng.uniform(size=(B, K)) < 0.3] = 0.0             # +0.0 ties
+    elif case == "subnormal":
+        d2 = rng.uniform(0.0, 1e-3, (B, K)).astype(np.float32)
+        d2[:, ::7] = np.float32(1e-45)
+        d2[:, 1::7] = np.float32(3e-39)
+    elif case == "no hit":
+        n_in[:] = 0
+    elif case == "full":
+        n_in[:] = K
+    elif case == "empty and full":
+        n_in[0], n_in[-1] = 0, K
+    elif case == "pow2 plus one":
+        n_in[:] = rng.integers(0, 65, B)
+        n_in[1] = 65                              # W = 128 < K
+    for b in range(B):
+        d2[b, rng.permutation(K)[: K - n_in[b]]] = np.inf
+    return d2, n_in
+
+
+@pytest.mark.parametrize("want_idx", [False, True], ids=["noidx", "idx"])
+@pytest.mark.parametrize("nch", [0, 1, 2, 5])
+@pytest.mark.parametrize("case", ["ties", "zeros", "subnormal", "no hit",
+                                  "full", "empty and full", "pow2 plus one",
+                                  "one row"])
+def test_sort_in_ball_is_the_stable_sort_of_full_rows(case, nch, want_idx):
+    """sort_in_ball against numpy's stable argsort of the full rows: d2,
+    each channel, idx and n_in over each row's first n_in slots, +inf / 0
+    / -1 past them, rows as wide as the least power of two that holds the
+    widest ball; sort.slots and sort.keys count B * K and the hits. The
+    off-ball slots hold garbage: only in-ball slots may be read."""
+    from so_tpu_torch import profiling
+
+    rng = np.random.default_rng(sum(map(ord, case)) + 7 * nch)
+    B, K = (1, 300) if case == "one row" else (9, 300)
+    d2, n_in = _rows_case(case, B, K, rng)
+    assert not np.signbit(d2).any()
+    ch = rng.normal(size=(B, nch, K)).astype(np.float32)
+    idx = rng.integers(-5, 10**6, (B, K)).astype(np.int32)
+    order = np.argsort(d2, axis=1, kind="stable")
+    take = lambda a: np.take_along_axis(a, order, axis=1)  # noqa: E731
+    want = (take(d2), [take(ch[:, i]) for i in range(nch)]
+            + ([take(idx)] if want_idx else []), n_in)
+    base = dict(profiling.counts)
+    got = sg.sort_in_ball(torch.as_tensor(d2), torch.as_tensor(ch),
+                          torch.as_tensor(idx) if want_idx else None)
+    assert profiling.counts[("sort.slots",)] - base.get(("sort.slots",), 0) \
+        == B * K
+    assert profiling.counts[("sort.keys",)] - base.get(("sort.keys",), 0) \
+        == n_in.sum()
+    W = _pow2_width(n_in.max(), K)
+    assert got[0].shape == (B, W) and got[0].dtype == torch.float32
+    assert all(c.shape == (B, W) for c in got[1])
+    assert (got[2] is None) == (not want_idx)
+    assert got[3].dtype == torch.int64
+    if case == "no hit":
+        assert W == 1
+    elif case == "pow2 plus one":
+        assert W == 128
+    elif case in ("full", "empty and full"):
+        assert W == K
+    chans = [c.numpy() for c in got[1]]
+    if want_idx:
+        assert got[2].dtype == torch.int32
+        chans.append(got[2].numpy())
+    _check_prefix_and_pads((got[0].numpy(), chans, got[3].numpy()), want,
+                           [0] * nch + ([-1] if want_idx else []),
+                           want_pads=False)
+    if case in ("ties", "zeros", "subnormal"):
+        assert any((np.diff(want[0][b, :n]) == 0).any()
+                   for b, n in enumerate(n_in))
+
+
+@pytest.mark.parametrize("chans,want_idx", [((), False), (FULL, True)],
+                         ids=["nch0", "nch5idx"])
+@pytest.mark.parametrize("K", [2048, 700, 1023])
+def test_sort_in_ball_on_the_slotted_gather(grids, K, chans, want_idx):
+    """sort_in_ball over the slotted plain version's rows (the pads and
+    off-ball slots as the kernels leave them, duplicate particles, an
+    empty ball, halos cut short at K) against sort_rows' K-wide rows."""
+    _, pgrid = grids
+    centers, radii = _balls(10)
+    _, desc = _descriptors(pgrid, centers, radii, K)
+    rows = sg.slab_gather_plain(pgrid.soa8t, *desc, torch.as_tensor(centers),
+                                pgrid.period, torch.as_tensor(radii * radii),
+                                K, pgrid.chunk, chans, want_idx)
+    want = sg.sort_rows(*rows)
+    got = sg.sort_in_ball(*rows)
+    n_in = want[3].numpy()
+    assert got[0].shape[1] == _pow2_width(n_in.max(), K) and n_in[2] == 0
+
+    def as_np(r):
+        return (r[0].numpy(), [c.numpy() for c in r[1]]
+                + ([r[2].numpy()] if want_idx else []), r[3].numpy())
+
+    _check_prefix_and_pads(as_np(got), as_np(want),
+                           [0] * len(chans) + ([-1] if want_idx else []))
+
+
+# (f) the route by capacity ----------------------------------------------------
 
 @pytest.mark.parametrize("side", ["at", "above", "forced off"])
 def test_route_by_capacity(grids, side, monkeypatch):
     """slab_gather takes the sorted form up to SORTED_K_MAX slots and the
-    slotted gather plus sort_rows above it; the results are the same."""
+    slotted gather plus sort_in_ball above it; the results are the same:
+    each row's in-ball prefix bit for bit, and every slot past it of
+    either width a pad (+inf, 0, -1), the sorted form's rows K wide and
+    sort_in_ball's as wide as the least power of two that holds the
+    widest ball."""
     _, pgrid = grids
     calls = []
 
@@ -383,7 +522,7 @@ def test_route_by_capacity(grids, side, monkeypatch):
         monkeypatch.setattr(tg, name, wrapped)
 
     spy("slab_gather_sorted_rows", tg.slab_gather_sorted_rows)
-    spy("sort_rows", tg.sort_rows)
+    spy("sort_in_ball", tg.sort_in_ball)
     K = tg.SORTED_K_MAX
     if side == "above":
         K += pgrid.chunk
@@ -394,17 +533,22 @@ def test_route_by_capacity(grids, side, monkeypatch):
     channels = ("mass", "mv", "idx")
     got = tg.slab_gather(pgrid, 1, tc, tr, tr * tr, K, 5, channels=channels)
     assert calls == (["slab_gather_sorted_rows"] if side == "at"
-                     else ["sort_rows"])
+                     else ["sort_in_ball"])
     monkeypatch.undo()
     want = tg.slab_gather(pgrid, 1, tc, tr, tr * tr, tg.SORTED_K_MAX, 5,
                           channels=channels)
-    k = tg.SORTED_K_MAX
-    _same_bits(got.d2[:, :k].numpy(), want.d2.numpy())
-    assert got.channels[1].shape == (3, K, 3)
-    for g, w in zip(got.channels, want.channels):
-        _same_bits(g[:, :k].numpy(), w.numpy())
-    np.testing.assert_array_equal(got.n_in.numpy(), want.n_in.numpy())
-    assert np.isinf(got.d2[:, k:].numpy()).all()
+    n_in = want.n_in.numpy()
+    W = K if side == "at" else _pow2_width(n_in.max(), K)
+    assert got.d2.shape == (3, W) and (W < K or side == "at")
+    assert got.channels[1].shape == (3, W, 3)
+
+    def split(r):
+        mv = r.channels[1].numpy()
+        return (r.d2.numpy(), [r.channels[0].numpy(), mv[..., 0], mv[..., 1],
+                               mv[..., 2], r.channels[2].numpy()],
+                r.n_in.numpy())
+
+    _check_prefix_and_pads(split(got), split(want), [0, 0, 0, 0, -1])
 
 
 def test_kernel_library_is_keyed_by_headers(tmp_path, monkeypatch):

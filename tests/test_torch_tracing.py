@@ -45,7 +45,8 @@ DISPATCH_CHILDREN = {"solve.ranges", "solve.gather", "solve.scan",
 # the counts a run makes (solve.overflow_regathers and solve.ball_regrows
 # only when a halo goes to another round)
 COUNTS = {"solve.rounds", "solve.dispatches", "solve.halo_gathers",
-          "fused.dispatches", "fused.halo_gathers"}
+          "fused.dispatches", "fused.halo_gathers", "sort.slots",
+          "sort.keys"}
 
 
 def _box(uniform):
@@ -170,6 +171,7 @@ def test_run_so_counts(recorded):
         "K3.bytes"}
     assert counts["solve.halo_gathers"] >= G
     assert counts["solve.rounds"] >= 1
+    assert 0 < counts["sort.keys"] < counts["sort.slots"]
     assert counts["solve.dispatches"] == sum(
         1 for r in spans if r[0] == "solve.dispatch")
     assert counts["fused.dispatches"] == sum(
