@@ -88,7 +88,14 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     solve.rounds, solve.dispatches, solve.halo_gathers (halos over all
     dispatches, the survey's and whole-box ones too),
     solve.overflow_regathers and solve.ball_regrows (halos sent to
-    another round by overflow or by a grown ball)."""
+    another round by overflow or by a grown ball). At more than one
+    threshold also, for every dispatch, the survey's classify and
+    whole-box stages included: multi.verdicts, the T x B (halo, threshold)
+    verdicts it scans, and multi.verdicts_settled, those of them whose
+    pair was resolved before the dispatch (a halo rides on until every
+    threshold has resolved). Host counts, from ``resolved`` only. At one
+    threshold nothing is shared (no settled pair is rescanned), so
+    solve_rvir's path counts what it did."""
     with span("solve.plan"):
         thresholds = np.asarray(thresholds, np.float32)
         T = thresholds.shape[0]
@@ -103,6 +110,12 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
         jout = np.zeros((T, G), np.int32)
         d2cut = np.zeros((T, G), np.float32)
         resolved = np.zeros((T, G), bool)
+
+        def count_verdicts(part):
+            if T > 1:
+                counts[("multi.verdicts",)] += T * int(part.size)
+                counts[("multi.verdicts_settled",)] += int(
+                    resolved[:, part].sum())
 
         def settle(t, idx, c):
             code[t, idx] = c
@@ -130,6 +143,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
         # sort-free -1/-2 pre-pass over the first ladder rung; survivors
         # rescan rung 1 in the normal rounds (the scan is round-stateless)
         def classify_apply(part, packed):
+            count_verdicts(part)
             w0 = packed[:, 0]
             n_in, ovf = w0 & 0x7FFFFFFF, (w0 >> 31) & 1
             ok_v = ovf == 0
@@ -250,6 +264,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
                     with span("solve.wbox"):
                         part = sel[lo:lo + bw]
                         count_dispatch(part)
+                        count_verdicts(part)
                         out = _whole_box_stage(
                             grid, torch.as_tensor(centers[part], device=dev),
                             torch.as_tensor(radii[lo:lo + part.size],
@@ -262,6 +277,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             for lo, part in _dispatch_chunks(sel, grid.parts * K):
                 with span("solve.dispatch"):
                     count_dispatch(part)
+                    count_verdicts(part)
                     out = _multi_stage(
                         grid, level, K, S, n_members,
                         torch.as_tensor(centers[part], device=dev),

@@ -178,7 +178,8 @@ def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
     """Multi-threshold pipeline: one grid and one shared-gather solve
     (engine.multi), then the full post-solve per threshold; each SORun
     equals an independent run_so at that threshold. ``grid`` and ``mesh``
-    as in run_so; the root span is "run_so_multi"."""
+    as in run_so; the root span is "run_so_multi", each threshold's
+    post-solve a "multi.post" span."""
     dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
     runs: list[SORun] = []
@@ -196,8 +197,9 @@ def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
                 rvir=multi.rvir[t].copy(), j=multi.j[t].copy(),
                 d2cut=multi.d2cut[t].copy(),
                 vcm=np.zeros((catalog.n, 3), np.float32))
-            run = _post_solve(grid, particles, catalog, centers, solve_t,
-                              params, timer)
+            with span("multi.post"):
+                run = _post_solve(grid, particles, catalog, centers,
+                                  solve_t, params, timer)
             run.solve_seconds = _time.perf_counter() - t0
             runs.append(run)
         for run in runs:

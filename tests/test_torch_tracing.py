@@ -1,8 +1,9 @@
 """The port's span and counter recorder (so_tpu_torch.profiling): nesting,
 totals and self time; the spans and counts a CPU run_so makes, with
-recording on and off; the shared clock with torch.profiler; K1's and K3's
-byte counts against the reckoning written out here from cell_ranges'
-output; PhaseTimer's report of the spans inside each phase."""
+recording on and off; run_so_multi's verdict counts and post-solve spans
+(and run_so's counts without them); the shared clock with torch.profiler;
+K1's and K3's byte counts against the reckoning written out here from
+cell_ranges' output; PhaseTimer's report of the spans inside each phase."""
 
 import io
 import os
@@ -19,7 +20,8 @@ from torch_scenarios import make_clumpy_box  # noqa: E402
 
 from so_tpu_torch import profiling  # noqa: E402
 from so_tpu_torch.engine import solver  # noqa: E402
-from so_tpu_torch.engine.pipeline import SOParams, run_so  # noqa: E402
+from so_tpu_torch.engine.pipeline import (SOParams, run_so,  # noqa: E402
+                                          run_so_multi)
 from so_tpu_torch.io.catalogs import GroupCatalog  # noqa: E402
 from so_tpu_torch.io.tipsy import (DARK, GAS, STAR, ParticleSet,  # noqa: E402
                                    TipsyHeader)
@@ -177,6 +179,100 @@ def test_run_so_counts(recorded):
     assert counts["fused.dispatches"] == sum(
         1 for r in spans if r[0] == "fused.dispatch")
     assert added["totals"][("run_so", "n")] == 1
+
+
+# box512.deltas' thresholds: M200m, Mvir (so.c's Delta_vir at Omega0 0.3,
+# -L, z 0, in f32) and M200c (200 / 0.3 in f32)
+DELTAS = (200.0, 334.22216796875, 666.6666870117188)
+
+
+def _deltas_box():
+    """The benchmark generator's uniform-mass box (sobench/gen/make_box.py,
+    the standard box's file cut to 2^13 particles and 32 centers), where
+    some halos resolve at 666.67 a round before they do at 200."""
+    import json
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo))
+    from sobench import harness
+
+    config = json.loads((repo / "sobench/configs/standard.json").read_text())
+    config.update(n_particles=1 << 13, n_halos=32)
+    mix = json.loads((repo / "sobench/traffic/deltas.json").read_text())
+    gen = harness.load_module(repo / "sobench/gen/make_box.py")
+    inputs = harness.Inputs(gen.snapshot(config, mix, 180018, "cpu"))
+    return inputs.particles(), inputs.catalog
+
+
+def _multi_added(thresholds, box=_deltas_box, uniform=True):
+    """run_so_multi on ``box()`` at ``thresholds`` with recording on:
+    (what it added to totals and to counts, its spans)."""
+    ps, catalog = box()
+    totals, counts = dict(profiling.totals), dict(profiling.counts)
+    profiling.start_recording()
+    try:
+        run_so_multi(ps, catalog(), _params(uniform), list(thresholds))
+    finally:
+        spans = profiling.stop_recording()
+    return (_added(profiling.totals, totals),
+            {k[0]: v for k, v in _added(profiling.counts, counts).items()},
+            spans)
+
+
+@pytest.mark.parametrize("thresholds", [DELTAS[:1], DELTAS],
+                         ids=["one", "deltas"])
+def test_run_so_multi_verdict_counts(thresholds):
+    """multi.verdicts is T x the halos of every solve dispatch (the
+    survey's classify included: solve.halo_gathers is the hand count);
+    multi.verdicts_settled, the pairs rescanned after they resolved, is
+    positive at the cell's three thresholds. At one threshold nothing is
+    shared, and neither is counted."""
+    _, counts, _ = _multi_added(thresholds)
+    T = len(thresholds)
+    if T == 1:
+        assert counts["solve.halo_gathers"] > 0
+        assert "multi.verdicts" not in counts
+        assert counts.get("multi.verdicts_settled", 0) == 0
+    else:
+        assert counts["multi.verdicts"] == T * counts["solve.halo_gathers"]
+        assert 0 < counts["multi.verdicts_settled"] < counts["multi.verdicts"]
+
+
+def test_run_so_multi_verdict_counts_whole_box(monkeypatch):
+    """The whole-box stages count their verdicts too."""
+    monkeypatch.setattr(solver, "WBOX_K_MIN", 1024)
+    _, counts, spans = _multi_added(DELTAS)
+    assert any(r[0] == "solve.wbox" for r in spans)
+    assert counts["multi.verdicts"] == 3 * counts["solve.halo_gathers"]
+
+
+def test_run_so_multi_post_spans():
+    """One multi.post span a threshold, children of run_so_multi, each
+    holding that threshold's post-solve phases."""
+    totals, _, spans = _multi_added(DELTAS)
+    assert totals[("multi.post", "n")] == len(DELTAS)
+    sid = {r[3]: r for r in spans}
+    posts = [r for r in spans if r[0] == "multi.post"]
+    assert {sid[r[4]][0] for r in posts} == {"run_so_multi"}
+    for phase in ("members + derived (fused)", "conflict protocol",
+                  "stats"):
+        parents = [sid[r[4]] for r in spans if r[0] == phase]
+        assert len(parents) == len(DELTAS)
+        assert all(p[0] == "multi.post" for p in parents)
+
+
+def test_run_so_counts_unchanged_by_the_multi_counts():
+    """run_so counts no multi.* count, and what it counts equals the same
+    solve's counts under run_so_multi at its one threshold."""
+    ps, catalog = _box(False)
+    base = dict(profiling.counts)
+    run_so(ps, catalog(), _params())
+    single = {k[0]: v for k, v in _added(profiling.counts, base).items()}
+    assert not any(k.startswith("multi.") for k in single)
+    _, multi, _ = _multi_added((_params().threshold,),
+                               lambda: (ps, catalog), False)
+    assert multi == single
 
 
 @pytest.mark.parametrize("uniform", [False, True], ids=["general",
