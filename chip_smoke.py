@@ -33,15 +33,23 @@ script exits nonzero:
      (below), B = 8 and 64 halos about the clump, K = 2^18 and 2^21, d2
      only / mass / mass + meta + idx, with K1's time beside K3's and the
      device ms of both (k3_study.py holds the measurements that chose K3's
-     design). Equality is exact (tolerance 0). K1's and K3's bytes bounds
+     design). The cell enumeration (ops/ranges.slab_ranges: the kernel of
+     csrc/cell_ranges.cu, one launch) against its plain version on the
+     standard box's grid, at (16,384 halos, the first ladder rung, K =
+     4096: K1's descriptors) and (the 8 largest halos, radii 0.08-0.2,
+     level 1, S = 7, K = 2^21: K3's): (cnt, q, total) everywhere, st where
+     cnt > 0 and the descriptors below n_total / n_pieces; its ms, device
+     ms, the plain version's ms and its bytes bound (ranges_bytes).
+     Equality is exact (tolerance 0). K1's and K3's bytes bounds
      count each payload row once however many of the batch's balls hold
      it (gather_reads).
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
      path); one cold and WARM_RUNS warm runs of each, with the median and
-     range of the warm phase seconds. Both kernels' launch counters,
-     zeroed just before, must grow.
+     range of the warm phase seconds. The launch counters of K1, its
+     sorted form, K2 and the cell enumeration, zeroed just before, must
+     grow.
   5. GPU against CPU: the same pipeline with device="cpu" on a 2^18 /
      2,048-halo box of each kind must give identical bits (codes, Mvir,
      Rvir, j, d2cut, membership, conflict counters, derived quantities);
@@ -165,14 +173,16 @@ Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
 each giant run, each run or solve of 14-16, each CLI run of 17, the
 zoom run of 18 and each check of 19 zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
-among them (9's card-against-CPU check runs after its count is read), and
-log K2's launches per (B, K). The line before
+among them and, with any gather kernel, the cell enumeration's (9's
+card-against-CPU check runs after its count is read), and log K2's
+launches per (B, K). The line before
 the last is a JSON object with one entry per kernel (launches summed
 over those phases; bounds from this run's inputs at the card's 3.35 TB/s
 and 67 TFLOP/s f32 and, for K2, its longest chain of dependent adds; every
 entry has its graph-replayed "device_ms"; K1's adds the sorted form's
 "sorted_ms", "sorted_device_ms", "sorted_bound_ms", "unfused_ms" and
-"sorted_launches", K2's its giant-row figures under "giant_rows"); the
+"sorted_launches", K2's and the cell enumeration's their giant-row
+figures under "giant_rows"); the
 last line is
 {"ok": true, "device": {...}}.
 The card's name and power limit are printed by phase 1.
@@ -198,8 +208,8 @@ GIANT_SEED = 515151
 MESH_SHAPES = ((1, 4), (2, 2))   # --mesh phase: meshes of cuda:0
 MESH_WARM_RUNS = 2  # timed runs of each mesh after its cold run
 # launches summed over the paths; K1 counts both of its forms, K1s the
-# sorted form's share
-LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0}
+# sorted form's share, "ranges" the cell enumeration's
+LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0, "ranges": 0}
 K2_SHAPES = {}             # K2 launches per (B, K), summed over the paths
 # run_record, ParticleSet and centers of the runs that the "so_tpu at
 # scale" phase holds to tests/torch_refs, by box name
@@ -619,6 +629,140 @@ def phase_kernels(box):
     return k1
 
 
+
+def ranges_equal(tag, got, want, kernel):
+    """slab_ranges' output against its plain version's where the plain
+    version defines it: (cnt, q, total) everywhere, st where cnt > 0, the
+    descriptor counts, and the descriptors below each halo's n_total (K1)
+    or n_pieces (K3). Raises on the first difference; returns the number
+    of descriptors compared."""
+    import torch
+
+    (st, cnt, q, tot), desc = got
+    (pst, pcnt, pq, ptot), pdesc = want
+    pairs = [("cnt", cnt, pcnt), ("q", q, pq), ("total", tot, ptot),
+             ("st where cnt > 0", st[pcnt > 0], pst[pcnt > 0])]
+    F = 5 if kernel == "K3" else 3
+    pairs += [(f"descriptor count {i}", a, b)
+              for i, (a, b) in enumerate(zip(desc[F:], pdesc[F:]))]
+    below = (torch.arange(desc[0].shape[1], device=st.device)[None, :]
+             < pdesc[F][:, None])
+    pairs += [(f"descriptor {i}", a[below], b[below])
+              for i, (a, b) in enumerate(zip(desc[:F], pdesc[:F]))]
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs from the plain "
+                                 f"version")
+    return int(pdesc[F].sum())
+
+
+def ranges_bytes(grid, level, c, r, S, kernel, n_desc):
+    """The bytes one slab_ranges launch must move: the balls (centers,
+    radii, r2_mask) read once, two starts entries for each cell that
+    passes the span and distance tests (the cells whose slab it looks up),
+    st, cnt, q and total written whole, the descriptors below n_total or
+    n_pieces and the descriptor counts. The cells that pass are counted by
+    the plain enumeration over a starts array of one row a cell."""
+    import dataclasses
+
+    import torch
+
+    from so_tpu_torch.ops.ranges import cell_ranges_plain
+
+    B, C = c.shape[0], S ** 3
+    starts = list(grid.starts)
+    starts[level] = torch.arange(grid.ncell(level) ** 3 + 1,
+                                 dtype=torch.int64, device=c.device)
+    one_row = dataclasses.replace(grid, starts=tuple(starts))
+    passed = int((cell_ranges_plain(one_row, level, c, r, r * r, S)[1]
+                  > 0).sum())
+    F, nd = (5, 2) if kernel == "K3" else (3, 1)
+    return 20 * B + 16 * passed + 24 * B * C + 8 * B + 4 * F * n_desc \
+        + 4 * nd * B
+
+
+def ranges_case(grid, level, S, c, r, K, tag):
+    """One shape of the cell enumeration on the card: slab_ranges (the
+    kernel, one launch) against slab_ranges_plain on the same tensors,
+    and timed: ms by CUDA events, device ms by graph replay, the plain
+    route's ms and the bytes bound. Returns the record of the [ranges]
+    line it logs."""
+    import torch
+
+    from so_tpu_torch.ops import ranges
+    from so_tpu_torch.ops.gather import PIECE_K_MIN
+
+    kernel = "K3" if K > PIECE_K_MIN else "K1"
+    B = c.shape[0]
+    args = (grid, level, c, r, r * r, S, grid.chunk, K, kernel)
+    n0 = ranges.launches
+    got = ranges.slab_ranges(*args)
+    want = ranges.slab_ranges_plain(*args)
+    torch.cuda.synchronize()
+    if ranges.launches != n0 + 1:
+        raise AssertionError(f"{tag}: slab_ranges made "
+                             f"{ranges.launches - n0} launches, not one")
+    n_desc = ranges_equal(tag, got, want, kernel)
+    del got, want
+    nbytes = ranges_bytes(grid, level, c, r, S, kernel, n_desc)
+    bms, by = bound(nbytes, 0)
+    rec = dict(
+        shape=f"B={B} S={S} K={K} {kernel}", library_ms=None,
+        descriptors=n_desc, bytes=nbytes,
+        ms=cuda_ms(lambda: ranges.slab_ranges(*args), 50),
+        device_ms=graph_ms(lambda: ranges.slab_ranges(*args), 50),
+        plain_ms=cuda_ms(lambda: ranges.slab_ranges_plain(*args), 10),
+        bound_ms=bms, bound_by=by)
+    log(f"[ranges] {tag} B={B} level={level} S={S} K={K} {kernel} chunk "
+        f"{grid.chunk}: equal to the plain version; kernel "
+        f"{rec['ms']:.4f} ms (events) {rec['device_ms']:.4f} ms (graph), "
+        f"plain {rec['plain_ms']:.4f} ms; {n_desc} descriptors, {nbytes} "
+        f"bytes: bound {bms:.5f} ms ({by})")
+    return rec
+
+
+def ranges_shapes(box, grid, seed=None):
+    """The cell enumeration's two shapes on a make_box box's grid, as
+    (tag, level, S, centers, radii, K): every halo of the first 16,384 at
+    the first ladder rung, K = 4096 (the solve's first dispatch: K1's
+    sorted form), and the 8 largest halos with radii uniform(0.08, 0.2)
+    at level 1, S = 7, K = 2^21 (K3's giant tier)."""
+    import numpy as np
+    import torch
+
+    from so_tpu_torch.engine.solver import _pick_level_span, ladder_radius
+
+    _, _, _, centers, rgtp = box
+    rng = np.random.default_rng(SEED if seed is None else seed)
+    B = min(16384, centers.shape[0])
+    radii = ladder_radius(rgtp[:B], np.full(B, 1, np.int32))
+    level, S = _pick_level_span(grid, float(radii.max()))
+    big = np.argsort(rgtp, kind="stable")[::-1][:8]
+    dev = grid.device
+    return [("first rung", level, S, torch.as_tensor(centers[:B], device=dev),
+             torch.as_tensor(radii, device=dev), 4096),
+            ("giant tier", 1, 7, torch.as_tensor(centers[big], device=dev),
+             torch.as_tensor(rng.uniform(0.08, 0.2, 8).astype(np.float32),
+                             device=dev), 1 << 21)]
+
+
+def phase_ranges(box):
+    """The cell enumeration (ops/ranges.slab_ranges, csrc/cell_ranges.cu)
+    against its plain version on the standard box at ranges_shapes'
+    shapes. Returns the first rung's record with the giant tier's under
+    "giant_rows"."""
+    import torch
+
+    from so_tpu_torch.ops.grid import build_grid
+
+    pos, mass, vel, _, _ = box
+    grid = build_grid(pos, mass, vel=vel, device=torch.device("cuda"))
+    recs = [ranges_case(grid, level, S, c, r, K, tag)
+            for tag, level, S, c, r, K in ranges_shapes(box, grid)]
+    del grid
+    torch.cuda.empty_cache()
+    return dict(recs[0], giant_rows=recs[1])
+
 # K2's dispatch ladder: the solve's capacity tiers (B*K = 2^26), the fused
 # pass's (2^25) at K = 2^12 and 2^22, the survey classify prefix and an
 # odd shape (K % 4 != 0, B not a multiple of 32)
@@ -837,19 +981,29 @@ def run(ps, catalog, species, device, grid=None, **kw):
 
 
 def zero_counts():
-    from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
+    from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
 
     slab_gather.launches = seqsum.launches = piece_gather.launches = 0
+    ranges.launches = 0
     slab_gather.sorted_launches = 0
     seqsum.shape_launches.clear()
     piece_gather.shape_launches.clear()
 
 
 def read_counts():
-    from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
+    from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
 
     return dict(K1=slab_gather.launches, K1s=slab_gather.sorted_launches,
-                K2=seqsum.launches, K3=piece_gather.launches)
+                K2=seqsum.launches, K3=piece_gather.launches,
+                ranges=ranges.launches)
+
+
+def gather_need(need):
+    """``need`` and, where it holds a gather kernel (K1, K1s or K3), the
+    cell enumeration's: every gather on the card enumerates its cells
+    first."""
+    need = tuple(need)
+    return need + (("ranges",) if {"K1", "K1s", "K3"} & set(need) else ())
 
 
 def read_k2_shapes(tag):
@@ -867,14 +1021,14 @@ def read_k2_shapes(tag):
 
 def counted(tag, fn, *a, need=("K1", "K1s", "K2"), **kw):
     """Run one path with every kernel's launch counter zeroed just before;
-    fail unless the path's kernels (``need``) grew; add the counts to
-    LAUNCHES."""
+    fail unless the path's kernels (gather_need(``need``)) grew; add the
+    counts to LAUNCHES."""
     zero_counts()
     out = fn(*a, **kw)
     counts = read_counts()
     log(f"[{tag}] launches: {counts}")
     read_k2_shapes(tag)
-    if any(counts[k] <= 0 for k in need):
+    if any(counts[k] <= 0 for k in gather_need(need)):
         raise AssertionError(f"{tag}: a kernel of the path never ran: "
                              f"{counts}")
     for k, v in counts.items():
@@ -942,7 +1096,7 @@ def phase_main_path(box):
     counts = read_counts()
     log(f"[main] launches in the main-path runs: {counts}")
     read_k2_shapes("main")
-    if min(counts["K1"], counts["K1s"], counts["K2"]) <= 0:
+    if min(counts["K1"], counts["K1s"], counts["K2"], counts["ranges"]) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     return counts
 
@@ -1991,7 +2145,8 @@ def phase_goldens():
                     raise AssertionError(f"golden {name} ({route}):\n"
                                          + "\n".join(errs[:10]))
                 if (min(counts["K1"], counts["K1s"]) if route == "default"
-                        else counts["K1"] + counts["K3"]) <= 0:
+                        else counts["K1"] + counts["K3"]) <= 0 \
+                        or counts["ranges"] <= 0:
                     raise AssertionError(f"golden {name} ({route}): a "
                                          f"gather kernel never ran: {counts}")
                 for key, v in counts.items():
@@ -2421,18 +2576,18 @@ DIST_RANK = """
 import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
 from so_tpu_torch.cli import main
-from so_tpu_torch.ops import piece_gather, seqsum, slab_gather
+from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
 for port, args in json.loads(sys.argv[2]):
     os.environ["MASTER_PORT"] = str(port)
     slab_gather.launches = slab_gather.sorted_launches = 0
-    seqsum.launches = piece_gather.launches = 0
+    seqsum.launches = piece_gather.launches = ranges.launches = 0
     t0 = time.perf_counter()
     if main(args) != 0:
         sys.exit(1)
     print("[rank] " + json.dumps(dict(
         e2e=time.perf_counter() - t0, K1=slab_gather.launches,
         K1s=slab_gather.sorted_launches, K2=seqsum.launches,
-        K3=piece_gather.launches)), flush=True)
+        K3=piece_gather.launches, ranges=ranges.launches)), flush=True)
 """
 
 
@@ -2479,7 +2634,7 @@ def run_ranks(W, jobs, device="cuda", backend=None):
     for j, (tag, _, need) in enumerate(jobs):
         counts = [json.loads(part[j].splitlines()[0]) for part in parts]
         for r, c in enumerate(counts):
-            if any(c[k] <= 0 for k in need):
+            if any(c[k] <= 0 for k in gather_need(need)):
                 raise AssertionError(f"{tag}: rank {r} never ran a kernel "
                                      f"of the path: {c}")
             for k in LAUNCHES:
@@ -2492,7 +2647,7 @@ def run_ranks(W, jobs, device="cuda", backend=None):
         log(f"[dist {tag}] {where[len('--distributed: '):]}"
             f"{'' if j else ' (first job of the processes)'}; launches per "
             "rank: " + "; ".join(
-                ", ".join(f"{k} {c[k]}" for k in ("K1", "K1s", "K2", "K3"))
+                ", ".join(f"{k} {c[k]}" for k in LAUNCHES)
                 for c in counts))
         results.append((text0[j], solve, max(c["e2e"] for c in counts)))
     return results
@@ -2921,6 +3076,7 @@ def main():
     timed("build", phase_build)
     box = timed("standard box", make_standard_box)
     k1 = timed("kernels", phase_kernels, box)
+    cr = timed("cell ranges", phase_ranges, box)
     k2 = timed("K2 ladder", phase_k2)
     giant = timed("giant box", giant_config)
     k3 = timed("K3 kernel", phase_k3, giant)
@@ -2969,6 +3125,10 @@ def main():
              source="so_tpu_torch/csrc/piece_gather.cu",
              replaces="experiments/pallas_piece_dma.py:176",
              launches=LAUNCHES["K3"], **k3),
+        dict(name="cell_ranges", route="cuda",
+             source="so_tpu_torch/csrc/cell_ranges.cu",
+             replaces="so_tpu/ops/gather.py:59 (XLA ops, no Pallas kernel)",
+             launches=LAUNCHES["ranges"], **cr),
     ]
     log("[K2] launches per (B, K) over the counted paths: "
         + ", ".join(f"({b}, {k}): {n}" for (b, k), n in sorted(

@@ -3,8 +3,9 @@
 // Replaces experiments/pallas_piece_dma.py pallas_slab_gather (kernel body
 // _make_kernel._gather_kernel, descriptors piece_descriptors). It computes
 // K1's function (csrc/slab_gather.cu) into K1's dense chunk-granular slots:
-// for halo b and piece u < n_pieces[b] (int32 descriptors from torch glue,
-// ops/piece_gather.piece_descriptors) it reads payload rows
+// for halo b and piece u < n_pieces[b] (int32 descriptors written by
+// csrc/cell_ranges.cu; plain version ops/piece_gather.piece_descriptors)
+// it reads payload rows
 // [src, src + v*CHUNK) of the (8, Np) SoA, keeps rows in the run's
 // [lo, hi), computes the min-image d2 to the halo center with the
 // reference's f32 association

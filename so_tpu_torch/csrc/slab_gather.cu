@@ -3,7 +3,8 @@
 // Replaces so_tpu/ops/pallas_gather.py pallas_slab_gather (kernel body
 // _make_kernel._gather_kernel). For each halo b and each CHUNK-aligned
 // descriptor t of its merged Morton slab runs (a0, lo, hi, all int32;
-// computed in torch glue, ops/slab_gather.chunk_descriptors) the kernel
+// written by csrc/cell_ranges.cu, plain version
+// ops/slab_gather.chunk_descriptors) the kernel
 // reads payload rows [a0 + t*CHUNK, +CHUNK) of the (8, Np) SoA, computes the
 // min-image d2 to the halo center (gather_body.cuh: the reference's f32
 // association, every operation rounded) and masks to lo <= row < hi and

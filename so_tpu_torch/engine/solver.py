@@ -47,12 +47,12 @@ import torch
 from ..ops.gather import min_image, unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import cbrt_f32, sqrt_rn
+from ..ops.ranges import S_MAX  # largest cell-cube side a gather enumerates
 from ..ops.seqsum import seq_cumsum
 from ..profiling import counts, span
 
 FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
-S_MAX = 7          # largest cell-cube side a gather enumerates
 SOLVE_SLOT_BUDGET = 1 << 26   # B*K slots per solve dispatch
 FUSED_SLOT_BUDGET = 1 << 25   # B*K slots per fused dispatch (five channels)
 # Capacity tiers above this many slots take the whole-box stage on a

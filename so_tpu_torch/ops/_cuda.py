@@ -50,6 +50,10 @@ _SIGNATURES = {
                         _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # (x, y, n_valid, B, K, rows, stream)
     "so_seqsum_rows": [_P, _P, _P, _L, _L, _I, _P],
+    # (centers, radii, r2_mask, lo, period, starts, B, ncg, S, align, st,
+    #  cnt, q, total, mode, nc, piece_w, desc, desc_n, stream)
+    "so_cell_ranges": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P,
+                       _P, _I, _L, _I, _P, _P, _P],
 }
 
 

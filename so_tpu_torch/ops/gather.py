@@ -5,7 +5,9 @@
   2. prune cells whose min distance to the center exceeds the ball radius
      (the reference's INTERSECT role),
   3. merge Morton-adjacent cell slabs into maximal runs and lay their
-     CHUNK-aligned footprints out densely (cell_ranges, align=chunk),
+     CHUNK-aligned footprints out densely (cell_ranges, align=chunk); on
+     the card 1-3 and the descriptors of step 4 are one launch
+     (ranges.slab_ranges),
   4. a kernel computes min-image distances and channels per slot
      (unsorted_gather): K1 up to PIECE_K_MIN slots, K3 above (the giant
      tiers; the same function and slot layout, so the same bits). Where
@@ -36,10 +38,11 @@ from typing import NamedTuple
 import torch
 
 from .. import profiling
-from .grid import CellGrid, morton_encode
-from .piece_gather import PIECE_W, piece_descriptors, piece_gather_rows
-from .slab_gather import (chunk_descriptors, slab_gather_rows,
-                          slab_gather_sorted_rows, sort_in_ball)
+from .grid import CellGrid
+from .piece_gather import PIECE_W, piece_gather_rows
+from .ranges import cell_ranges_plain, slab_ranges
+from .slab_gather import (slab_gather_rows, slab_gather_sorted_rows,
+                          sort_in_ball)
 
 # Dispatches of more slots than this go through K3, the rest through K1:
 # so_tpu's K_SLAB_MAX, the capacity where it leaves its per-chunk kernel.
@@ -69,86 +72,13 @@ def cell_ranges(grid: CellGrid, level: int, centers, radii, r2_mask, S: int,
     the per-halo candidate total. ``align`` > 1 merges Morton-adjacent
     slabs into maximal runs and rounds each run's footprint out to
     align-sized chunks (the slab kernel's layout); runs then occupy the
-    leading slots of each row and the trailing slots have cnt = 0.
+    leading slots of each row and the trailing slots have cnt = 0. That
+    form goes through ranges.slab_ranges (the kernel on a CUDA grid); with
+    ``align`` 1 it is ranges.cell_ranges_plain on either device.
     """
-    ncg = grid.ncell(level)
-    cs = grid.cell_size(level)                       # (3,)
-    starts = grid.starts[level]
-    B = centers.shape[0]
-    dev = centers.device
-
-    uc = centers - grid.lo
-    uc = uc - torch.floor(uc / grid.period) * grid.period   # wrapped (B,3)
-
-    r = radii[:, None]
-    i_lo = torch.floor((uc - r) / cs).to(torch.int64)
-    i_hi = torch.floor((uc + r) / cs).to(torch.int64)
-    span = torch.clamp(i_hi - i_lo + 1, max=ncg)
-
-    offs = torch.arange(S, dtype=torch.int64, device=dev)
-    coords = i_lo[:, :, None] + offs[None, None, :]    # (B,3,S) unwrapped
-    axis_ok = offs[None, None, :] < span[:, :, None]
-
-    # per-axis min distance from the wrapped center to the cell slab, in
-    # unwrapped ball coordinates (the cube is contiguous there)
-    lo_edge = coords.to(torch.float32) * cs[None, :, None]
-    hi_edge = lo_edge + cs[None, :, None]
-    d_ax = torch.clamp(torch.maximum(lo_edge - uc[:, :, None],
-                                     uc[:, :, None] - hi_edge), min=0.0)
-
-    cw = torch.remainder(coords, ncg)                  # wrapped cell coords
-    code = morton_encode(cw[:, 0, :, None, None], cw[:, 1, None, :, None],
-                         cw[:, 2, None, None, :]).reshape(B, S * S * S)
-    dx, dy, dz = d_ax[:, 0], d_ax[:, 1], d_ax[:, 2]
-    d2min = (dx[:, :, None, None] * dx[:, :, None, None]
-             + dy[:, None, :, None] * dy[:, None, :, None]
-             + dz[:, None, None, :] * dz[:, None, None, :]).reshape(B, -1)
-    cell_ok = (axis_ok[:, 0, :, None, None] & axis_ok[:, 1, None, :, None]
-               & axis_ok[:, 2, None, None, :]).reshape(B, S * S * S)
-    cell_ok = cell_ok & (d2min <= r2_mask[:, None])
-
-    st = starts[code]
-    cnt = torch.where(cell_ok, starts[code + 1] - st, torch.zeros_like(st))
-
-    if align > 1:
-        # Merge adjacent slabs: Morton-neighboring cells are contiguous in
-        # the sorted rows, so sorting candidates by slab start and fusing
-        # st[i+1] == st[i] + cnt[i] turns the cube into a few long runs.
-        C = st.shape[1]
-        big = 1 << 40
-        key = torch.where(cnt > 0, st, torch.full_like(st, big))
-        key_s, o = torch.sort(key, dim=1, stable=True)
-        st_s = torch.gather(st, 1, o)
-        cnt_s = torch.where(key_s < big, torch.gather(cnt, 1, o),
-                            torch.zeros_like(st))
-        prev_end = torch.cat([torch.full((B, 1), -1, dtype=torch.int64,
-                                         device=dev),
-                              (st_s + cnt_s)[:, :-1]], dim=1)
-        is_new = (st_s != prev_end) & (key_s < big)
-        csum = torch.cumsum(cnt_s, dim=1)
-        pref = csum - cnt_s
-        total_cnt = csum[:, -1:]
-        nrun = is_new.sum(dim=1, keepdim=True)
-        slotc = torch.arange(C, dtype=torch.int64, device=dev)[None, :]
-        # run j's count is the difference of exclusive prefix counts at
-        # consecutive run starts; compact the run starts to the front
-        key2 = torch.where(is_new, slotc, torch.full_like(slotc, C))
-        _, o2 = torch.sort(key2, dim=1, stable=True)
-        st_m = torch.gather(st_s, 1, o2)
-        pref_m = torch.gather(pref, 1, o2)
-        pref_next = torch.cat([pref_m[:, 1:], total_cnt], dim=1)
-        pref_next = torch.where(slotc + 1 < nrun, pref_next, total_cnt)
-        cnt = torch.where(slotc < nrun, pref_next - pref_m,
-                          torch.zeros_like(pref_m))
-        st = st_m
-        foot = torch.where(cnt > 0,
-                           ((st % align) + cnt + (align - 1)) // align * align,
-                           torch.zeros_like(cnt))
-    else:
-        foot = cnt
-    q = torch.cumsum(foot, dim=1) - foot
-    total = q[:, -1] + foot[:, -1]
-    return st, cnt, q, total
+    if align == 1:
+        return cell_ranges_plain(grid, level, centers, radii, r2_mask, S)
+    return slab_ranges(grid, level, centers, radii, r2_mask, S, align)[0]
 
 
 class GatherResult(NamedTuple):
@@ -270,19 +200,16 @@ def _count_bytes(kernel, grid, ranges, K, nchan, want_idx, sorted_form):
                               12 * rows + 4 * per_desc * n_desc.sum() + fixed)
 
 
-def _descriptors(grid: CellGrid, ranges, K: int):
-    """(kernel, descriptors) of a slotted launch from cell_ranges' output:
-    K1 for K <= PIECE_K_MIN, else K3."""
-    st, cnt, q, _ = ranges
-    if K > PIECE_K_MIN:
-        return "K3", piece_descriptors(st, cnt, q, K, grid.chunk)
-    return "K1", chunk_descriptors(st, cnt, q, K, grid.chunk)
+def _slotted_kernel(K: int) -> str:
+    """The slotted launch of capacity K: K1 for K <= PIECE_K_MIN, else
+    K3."""
+    return "K3" if K > PIECE_K_MIN else "K1"
 
 
 def _slotted(grid: CellGrid, ranges, kernel: str, desc, centers, r2_mask,
              K: int, chans: tuple, want_idx: bool):
-    """(d2, channels, idx) in slot order: the launch of _descriptors'
-    kernel."""
+    """(d2, channels, idx) in slot order: the launch of ``kernel`` over its
+    descriptors ``desc``."""
     rows = piece_gather_rows if kernel == "K3" else slab_gather_rows
     out = rows(grid.soa8t, *desc, centers, grid.period, r2_mask, K,
                grid.chunk, chans, want_idx)
@@ -292,11 +219,11 @@ def _slotted(grid: CellGrid, ranges, kernel: str, desc, centers, r2_mask,
 
 def footprint(grid: CellGrid, level: int, centers, radii, S: int):
     """Each ball's slab-slot footprint at ``level``: the capacity K that
-    gathers it whole (cell_ranges' total)."""
+    gathers it whole (slab_ranges' total)."""
     if not isinstance(grid, CellGrid):
         return grid.footprint(level, centers, radii, S)
-    return cell_ranges(grid, level, centers, radii, radii * radii, S,
-                       align=grid.chunk)[3]
+    return slab_ranges(grid, level, centers, radii, radii * radii, S,
+                       grid.chunk)[0][3]
 
 
 # unsorted_gather's position channels: payload rows 0-2 read at the
@@ -319,10 +246,10 @@ def unsorted_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
         with span("gather"):
             return grid.unsorted_gather(level, centers, radii, r2_mask, K, S,
                                         chans, want_idx)
+    kernel = _slotted_kernel(K)
     with span("ranges"):
-        ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                             align=grid.chunk)
-        kernel, desc = _descriptors(grid, ranges, K)
+        ranges, desc = slab_ranges(grid, level, centers, radii, r2_mask, S,
+                                   grid.chunk, K, kernel)
     kchans = tuple(c for c in chans if c not in POSITION)
     with span("gather"):
         d2, ch, idx = _slotted(grid, ranges, kernel, desc, centers, r2_mask,
@@ -378,13 +305,10 @@ def slab_gather(grid: CellGrid, level: int, centers, radii, r2_mask,
     kernel_chans = tuple(kernel_chans)
     want_idx = "idx" in channels or "orig" in channels
     in_sorted_form = K <= min(SORTED_K_MAX, PIECE_K_MIN)  # K3's stay K3's
+    kernel = "K1" if in_sorted_form else _slotted_kernel(K)
     with span("ranges"):
-        ranges = cell_ranges(grid, level, centers, radii, r2_mask, S,
-                             align=grid.chunk)
-        if in_sorted_form:
-            desc = chunk_descriptors(*ranges[:3], K, grid.chunk)
-        else:
-            kernel, desc = _descriptors(grid, ranges, K)
+        ranges, desc = slab_ranges(grid, level, centers, radii, r2_mask, S,
+                                   grid.chunk, K, kernel)
     if in_sorted_form:
         with span("gather"):
             d2_s, ch, idx, n_in = slab_gather_sorted_rows(

@@ -11,6 +11,9 @@ It serves the giant capacity tiers (K > gather.PIECE_K_MIN), whose balls
 hold 10^5-10^7 candidates in long runs; ops/gather routes each dispatch
 by its capacity.
 
+piece_descriptors is the plain version of the descriptors that
+ops/ranges.slab_ranges writes on the card.
+
 ``piece_gather_rows`` is the wrapper: a CUDA tensor launches the kernel in
 csrc/piece_gather.cu, a CPU tensor runs ``piece_gather_plain``; either way
 it first refuses what the kernel does not take (_check_k3), a payload

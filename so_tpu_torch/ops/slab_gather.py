@@ -2,7 +2,8 @@
 
 A ball's candidates are contiguous slabs of the Morton-sorted payload (one
 per intersecting cell, pre-merged into maximal runs by
-gather.cell_ranges). chunk_descriptors cuts each halo's runs into
+gather.cell_ranges). chunk_descriptors (the plain version of what
+ops/ranges.slab_ranges writes on the card) cuts each halo's runs into
 CHUNK-aligned pieces laid out densely: chunk t reads payload columns
 [a0_t + t*CHUNK, +CHUNK) and fills output slots [t*CHUNK, (t+1)*CHUNK),
 masking rows outside the run's [lo_t, hi_t).

@@ -1,5 +1,6 @@
 """Kernels K1 (csrc/slab_gather.cu, its slotted and its sorted form), K2
-(csrc/seqsum.cu) and K3 (csrc/piece_gather.cu) on the card.
+(csrc/seqsum.cu), K3 (csrc/piece_gather.cu) and the cell enumeration
+(csrc/cell_ranges.cu) on the card.
 
 Every test needs a CUDA device and skips without one. Each kernel is
 held against its plain torch version on the same CUDA tensors, and
@@ -25,7 +26,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-from so_tpu_torch.ops import seqsum, slab_gather  # noqa: E402
+from so_tpu_torch.ops import gather, ranges, seqsum, slab_gather  # noqa: E402
 from so_tpu_torch.ops.gather import cell_ranges  # noqa: E402
 from so_tpu_torch.ops.grid import build_grid  # noqa: E402
 
@@ -445,6 +446,160 @@ def test_k2_adversarial_rows(dev):
     assert not torch.equal(torch.cumsum(x, dim=1), seqsum.seq_cumsum(x))
 
 
+# The cell enumeration: no kernel (None, ranges only), K1's sorted form
+# (2^12), the K1/K3 boundary (2^15) and K3 (2^17, 2^21)
+RANGE_KS = [None, 1 << 12, 1 << 15, 1 << 17, 1 << 21]
+
+
+def _range_kernel(K):
+    return None if K is None else gather._slotted_kernel(K)
+
+
+def _range_grids(seed, chunk):
+    """The same grid on the card and the CPU: 2^15 particles in the half
+    x < 0 of the box, a clump among them, so balls on the other side are
+    empty. Level 0 has 32 cells an axis, level 2 has 8."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 15
+    pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    pos[:, 0] = rng.uniform(-0.5, 0.0, n).astype(np.float32)
+    pos[: n // 3] = (rng.normal(scale=0.03, size=(n // 3, 3))
+                     + (-0.25, 0.3, -0.45)).astype(np.float32)
+    pos = ((pos + 0.5) % 1.0 - 0.5).astype(np.float32)
+    grids = {d: build_grid(pos, np.ones(n, np.float32), m=5, chunk=chunk,
+                           device=d) for d in ("cuda", "cpu")}
+    return rng, grids
+
+
+def _range_balls(rng, B, cs, S):
+    """(centers, radii, r2_mask) f32: random balls; centers on the box's
+    faces and just inside them (the periodic wrap); centers on cell
+    corners with radii of whole cells (every edge of the cube exact);
+    zero radii; and r2_mask -1 (nothing passes the pruning)."""
+    half = max((S - 1) / 2, 0.5)
+    c = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
+    r = rng.uniform(0.0, half * cs, B).astype(np.float32)
+    k = B // 4
+    c[:k] = rng.choice(np.array([-0.5, 0.5, np.nextafter(0.5, 0),
+                                 np.nextafter(-0.5, 0), 0.0], np.float32),
+                       (k, 3))
+    corners = (rng.integers(0, int(round(1 / cs)), (k, 3)) * cs - 0.5)
+    c[k:2 * k] = corners.astype(np.float32)
+    r[k:2 * k] = (rng.integers(0, int(half) + 1, k) * cs).astype(np.float32)
+    r[2 * k:2 * k + 2] = 0.0
+    r2 = r * r
+    r2[2 * k + 2:2 * k + 4] = -1.0
+    return c, r, r2
+
+
+def _ranges_equal(got, want, kernel):
+    """The kernel's ranges and descriptors equal the plain version's where
+    the plain version defines them: cnt, q, total everywhere, st where
+    cnt > 0, the descriptor counts, and each descriptor below its halo's
+    count."""
+    (st, cnt, q, tot), desc = ((t.cpu().numpy() for t in got[0]), got[1])
+    (pst, pcnt, pq, ptot), pdesc = ((t.cpu().numpy() for t in want[0]),
+                                    want[1])
+    for a, b in ((cnt, pcnt), (q, pq), (tot, ptot)):
+        assert a.dtype == b.dtype == np.int64
+        np.testing.assert_array_equal(a, b)
+    live = pcnt > 0
+    np.testing.assert_array_equal(st[live], pst[live])
+    if kernel is None:
+        assert desc is None and pdesc is None
+        return 0
+    F = 5 if kernel == "K3" else 3
+    assert len(desc) == len(pdesc) == F + (2 if kernel == "K3" else 1)
+    for a, b in zip(desc, pdesc):
+        assert a.dtype == b.dtype == torch.int32 and a.is_contiguous()
+        assert a.shape == b.shape
+    for a, b in zip(desc[F:], pdesc[F:]):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    n = pdesc[F].cpu().numpy()
+    below = np.arange(desc[0].shape[1])[None, :] < n[:, None]
+    for a, b in zip(desc[:F], pdesc[:F]):
+        np.testing.assert_array_equal(a.cpu().numpy()[below],
+                                      b.cpu().numpy()[below])
+    return int(n.sum())
+
+
+def _ranges_check(grids, level, c, r, r2, S, K):
+    """slab_ranges on the card (the kernel, one launch) against its plain
+    version on the card's tensors and on the CPU grid; returns the
+    descriptors compared."""
+    kernel = _range_kernel(K)
+    g = grids["cuda"]
+    args = [torch.as_tensor(a, device="cuda") for a in (c, r, r2)]
+    n0, k0 = ranges.launches, ranges.counts[("ranges.kernel",)]
+    got = ranges.slab_ranges(g, level, *args, S, g.chunk, K, kernel)
+    torch.cuda.synchronize()
+    assert ranges.launches == n0 + 1
+    assert ranges.counts[("ranges.kernel",)] == k0 + 1
+    plain = ranges.slab_ranges_plain(g, level, *args, S, g.chunk, K, kernel)
+    assert ranges.launches == n0 + 1    # the plain version never counts
+    _ranges_equal(got, plain, kernel)
+    cpu = ranges.slab_ranges_plain(grids["cpu"], level,
+                                   *(torch.as_tensor(a) for a in (c, r, r2)),
+                                   S, g.chunk, K, kernel)
+    return _ranges_equal(got, cpu, kernel)
+
+
+@pytest.mark.parametrize("K", RANGE_KS, ids=lambda k: f"K{k}")
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 6, 7])
+def test_cell_ranges_kernel_matches_plain(dev, S, K):
+    """At every cube side 1-7, on a fine level (32 cells an axis) and a
+    coarse one (8, where the cube wraps the whole box), and every kind of
+    launch: the kernel equals the plain version, on the card and on the
+    CPU. Balls on the box's faces, on cell edges, empty and pruned."""
+    rng, grids = _range_grids(100 + S, 128 if S % 2 else 256)
+    n_desc = 0
+    for level in (0, 2):
+        cs = 1.0 / grids["cpu"].ncell(level)
+        c, r, r2 = _range_balls(rng, 64, cs, S)
+        n_desc += _ranges_check(grids, level, c, r, r2, S, K)
+    assert K is None or n_desc > 0
+
+
+@pytest.mark.parametrize("K", [1 << 12, 1 << 17], ids=["K1", "K3"])
+@pytest.mark.parametrize("B", [1, 16384])
+def test_cell_ranges_kernel_batch_sizes(dev, B, K):
+    rng, grids = _range_grids(7, 128)
+    c, r, r2 = _range_balls(rng, B, 1.0 / 32, 3)
+    if B == 1:
+        c[0], r[0], r2[0] = (-0.25, 0.3, -0.45), 0.05, 0.0025  # the clump
+    assert _ranges_check(grids, 0, c, r, r2, 3, K) > 0
+
+
+def test_cell_ranges_kernel_giant_rows(dev):
+    """K3's longest rows: 8 balls of a third of the box over 2^21
+    particles at K = 2^21 and 2^24, so each halo's pieces spread over
+    several blocks (more than 2,048 a halo), where the balls overflow K
+    and where they do not."""
+    rng = np.random.default_rng(8)
+    pos = rng.uniform(-0.5, 0.5, (1 << 21, 3)).astype(np.float32)
+    grids = {d: build_grid(pos, np.ones(1 << 21, np.float32), m=5,
+                           chunk=128, device=d) for d in ("cuda", "cpu")}
+    c = rng.uniform(-0.5, 0.5, (8, 3)).astype(np.float32)
+    r = rng.uniform(0.3, 0.4, 8).astype(np.float32)
+    for K in (1 << 21, 1 << 24):
+        assert _ranges_check(grids, 2, c, r, r * r, 7, K) > 8 * 2048
+
+
+def test_cell_ranges_kernel_refuses_what_it_does_not_take(dev):
+    rng, grids = _range_grids(9, 128)
+    g = grids["cuda"]
+    c, r, r2 = (torch.as_tensor(a, device="cuda")
+                for a in _range_balls(rng, 8, 1.0 / 32, 3))
+    with pytest.raises(ValueError):
+        ranges.slab_ranges(g, 0, c.double(), r, r2, 3, g.chunk)
+    with pytest.raises(ValueError):
+        ranges.slab_ranges(g, 0, c.cpu(), r, r2, 3, g.chunk)
+    with pytest.raises(ValueError):
+        ranges.slab_ranges(g, 0, c, r, r2, 11, g.chunk)
+    with pytest.raises(ValueError):
+        ranges.slab_ranges(g, 0, c, r, r2, 3, g.chunk * 2, 4096, "K1")
+
+
 def _pipeline_box():
     """A three-species clumpy box (11,500 particles) and a catalog factory
     of its 3 clump centers."""
@@ -569,9 +724,9 @@ def test_sort_in_ball_cuda_matches_cpu(dev, K):
         if d == "cuda":
             assert (slab_gather.launches > k1) == (K <= gather.PIECE_K_MIN)
             assert (piece_gather.launches > k3) == (K > gather.PIECE_K_MIN)
-            ranges = gather.cell_ranges(g, level, c, r, r * r, S,
-                                        align=g.chunk)
-            kernel, desc = gather._descriptors(g, ranges, K)
+            kernel = gather._slotted_kernel(K)
+            ranges, desc = gather.slab_ranges(g, level, c, r, r * r, S,
+                                              g.chunk, K, kernel)
             rows = gather._slotted(g, ranges, kernel, desc, c, r * r, K,
                                    ("mass", "meta"), True)
     got, want = out["cuda"], out["cpu"]
@@ -619,6 +774,92 @@ def test_run_so_slotted_route_cuda_matches_default(dev, uniform):
         assert slab_gather.sorted_launches == f0
     assert (g.solve.code == 0).any()
     assert _fields(g, sp) == _fields(u, sp)
+
+
+def _plain_ranges_on_the_card(grid, level, centers, radii, r2_mask, S,
+                              align, K=None, kernel=None):
+    """ranges.slab_ranges with the plain version in place of the kernel,
+    on the card's tensors (and counted as it counts)."""
+    ranges.counts[("ranges.calls",)] += 1
+    return ranges.slab_ranges_plain(grid, level, centers, radii, r2_mask, S,
+                                    align, K, kernel)
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["general", "uniform"])
+def test_run_so_cell_ranges_kernel_matches_plain_and_cpu(dev, uniform):
+    """run_so (with the survey's classify) on the card, every enumeration
+    through the kernel, equals the same run with the plain enumeration on
+    the card in every field and member list, and the CPU run in the
+    fields the card and the CPU share (test_pipeline_cuda_matches_cpu)."""
+    import dataclasses
+
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+
+    ps, cat = _pipeline_box()
+    if uniform:
+        ps = dataclasses.replace(ps, mass=np.full(ps.n, np.float32(1.0 / ps.n),
+                                                  np.float32))
+    sp = (DARK, GAS, STAR)
+    params = dict(species=sp, survey=True)
+    calls, kern = (ranges.counts[("ranges.calls",)],
+                   ranges.counts[("ranges.kernel",)])
+    n0 = ranges.launches
+    g = run_so(ps, cat(), SOParams(device="cuda", **params))
+    n_calls = ranges.counts[("ranges.calls",)] - calls
+    assert n_calls > 0
+    assert ranges.counts[("ranges.kernel",)] - kern == n_calls
+    assert ranges.launches - n0 == n_calls
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gather, "slab_ranges", _plain_ranges_on_the_card)
+        n0 = ranges.launches
+        p = run_so(ps, cat(), SOParams(device="cuda", **params))
+        assert ranges.launches == n0
+    assert (g.solve.code == 0).any()
+    assert _fields(g, sp) == _fields(p, sp)
+    c = run_so(ps, cat(), SOParams(device="cpu", **params))
+    for a, b in ((g.solve.mvir, c.solve.mvir), (g.solve.d2cut, c.solve.d2cut),
+                 (g.solve.j, c.solve.j), (g.solve.vcm, c.solve.vcm),
+                 (g.conflicts.igrp, c.conflicts.igrp),
+                 (g.conflicts.n_ignored, c.conflicts.n_ignored),
+                 (g.derived.vcirc, c.derived.vcirc),
+                 (g.derived.rmass, c.derived.rmass),
+                 (g.derived.vmax, c.derived.vmax)):
+        assert a.tobytes() == b.tobytes()
+    for ma, mb in zip(g.members, c.members):
+        assert (ma is None) == (mb is None)
+        assert ma is None or np.array_equal(ma, mb)
+
+
+def test_cuda_grid_never_takes_the_plain_enumeration(dev, monkeypatch):
+    """With the plain enumeration and the torch descriptors made to fail,
+    run_so on the card (survey, -pot recentring, the giant route through
+    K3) still runs: a CUDA grid only ever launches the kernel."""
+    from so_tpu_torch.io.tipsy import DARK, GAS, STAR
+    from so_tpu_torch.engine.pipeline import SOParams, run_so
+    from so_tpu_torch.ops import piece_gather
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain enumeration ran on a CUDA grid")
+
+    for mod, name in ((ranges, "cell_ranges_plain"),
+                      (ranges, "slab_ranges_plain"),
+                      (ranges, "chunk_descriptors"),
+                      (ranges, "piece_descriptors"),
+                      (gather, "cell_ranges_plain"),
+                      (slab_gather, "chunk_descriptors"),
+                      (piece_gather, "piece_descriptors")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(gather, "PIECE_K_MIN", 1024)
+    ps, cat = _pipeline_box()
+    k3, calls = piece_gather.launches, ranges.counts[("ranges.calls",)]
+    kern = ranges.counts[("ranges.kernel",)]
+    run = run_so(ps, cat(), SOParams(species=(DARK, GAS, STAR), survey=True,
+                                     b_pot=True, device="cuda"))
+    assert (run.solve.code == 0).any() and piece_gather.launches > k3
+    n_calls = ranges.counts[("ranges.calls",)] - calls
+    assert n_calls > 0
+    assert ranges.counts[("ranges.kernel",)] - kern == n_calls
 
 
 def test_mesh_cuda_matches_run_so_and_cpu(dev):

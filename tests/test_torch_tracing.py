@@ -25,7 +25,7 @@ from so_tpu_torch.engine.pipeline import (SOParams, run_so,  # noqa: E402
 from so_tpu_torch.io.catalogs import GroupCatalog  # noqa: E402
 from so_tpu_torch.io.tipsy import (DARK, GAS, STAR, ParticleSet,  # noqa: E402
                                    TipsyHeader)
-from so_tpu_torch.ops import gather  # noqa: E402
+from so_tpu_torch.ops import gather, ranges  # noqa: E402
 from so_tpu_torch.ops.grid import build_grid  # noqa: E402
 from so_tpu_torch.profiling import PhaseTimer, span  # noqa: E402
 
@@ -45,10 +45,10 @@ SPANS = PHASES | {
 DISPATCH_CHILDREN = {"solve.ranges", "solve.gather", "solve.scan",
                      "solve.fetch", "solve.apply"}
 # the counts a run makes (solve.overflow_regathers and solve.ball_regrows
-# only when a halo goes to another round)
+# only when a halo goes to another round; ranges.kernel only on the card)
 COUNTS = {"solve.rounds", "solve.dispatches", "solve.halo_gathers",
           "fused.dispatches", "fused.halo_gathers", "sort.slots",
-          "sort.keys"}
+          "sort.keys", "ranges.calls"}
 
 
 def _box(uniform):
@@ -178,7 +178,35 @@ def test_run_so_counts(recorded):
         1 for r in spans if r[0] == "solve.dispatch")
     assert counts["fused.dispatches"] == sum(
         1 for r in spans if r[0] == "fused.dispatch")
+    # every gather dispatch enumerates its cells once, the probes besides
+    assert counts["ranges.calls"] >= (counts["solve.dispatches"]
+                                      + counts["fused.dispatches"])
     assert added["totals"][("run_so", "n")] == 1
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["general",
+                                                        "uniform"])
+def test_ranges_counts_on_the_cpu(uniform, monkeypatch):
+    """ranges.calls counts each enumeration at align > 1 of a CPU run_so,
+    every one of them served by the plain version; ranges.kernel stays 0
+    and the kernel never launches."""
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[6] if len(args) > 6 else kw.get("align", 1))
+        return plain(*args, **kw)
+
+    plain = ranges.cell_ranges_plain
+    monkeypatch.setattr(ranges, "cell_ranges_plain", spy)
+    monkeypatch.setattr(gather, "cell_ranges_plain", spy)
+    ps, catalog = _box(uniform)
+    base, launches = dict(profiling.counts), ranges.launches
+    run_so(ps, catalog(), _params(uniform))
+    added = {k[0]: v for k, v in _added(profiling.counts, base).items()}
+    wide = sum(1 for a in calls if a > 1)
+    assert wide > 0 and added["ranges.calls"] == wide
+    assert "ranges.kernel" not in added
+    assert ranges.launches == launches
 
 
 # box512.deltas' thresholds: M200m, Mvir (so.c's Delta_vir at Omega0 0.3,
@@ -419,7 +447,8 @@ def test_bytes_counted_only_when_asked():
     profiling.stop_recording()
     d = {k: v - base.get(k, 0) for k, v in profiling.counts.items()
          if v != base.get(k, 0)}
-    assert set(d) == {("K1.bytes",)}
+    assert set(d) == {("K1.bytes",), ("ranges.calls",)}
+    assert d[("ranges.calls",)] == 3    # the enumeration is always counted
 
 
 def test_phase_timer_reports_its_own_spans():
