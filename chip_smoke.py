@@ -117,28 +117,20 @@ script exits nonzero:
      2^18 files of phase 10: --deltas 200,340,667 and -pot against phase
      10's files, and -pot --checkpoint twice (the second resumes from the
      two rank shards) with the same bytes.
- 14. whole box: the giant box with uniform masses, solve_rvir with
-     solver.WBOX_K_MIN forced to 2^15 (the whole-box stage takes every tier
-     above it), at its default and off: codes, Mvir, Rvir, j and d2cut
-     identical; each run's solve seconds, whole-box dispatches and kernel
-     launches; one whole-box stage (the first _wbox_chunk halos at their
-     last rungs) and its d2 pass timed by CUDA events beside the bytes
-     bound; the phase's peak device memory.
- 15. 512^3: so_tpu's largest catalog (experiments/scale512.py),
+ 14. 512^3: so_tpu's largest catalog (experiments/scale512.py),
      make_box(rng(12345), 512**3, 65536), uniform masses: run_so at Delta
      178 (phase seconds, solves/s, e2e, launches, peak device memory and
-     host peak RSS); the solve again on a prebuilt grid with the other
-     WBOX_K_MIN setting, identical on every halo; the 4 largest solved and
-     4 random halos against tests/reference_oracle.py (rel 2e-5);
-     run_so_multi at 178/200/500, whose 178 run equals run_so's in every
-     field and member list.
- 16. survey box: bench.py's make_box(rng(12345), 2**25, 1_000_000) (46.1M
+     host peak RSS); the 4 largest solved and 4 random halos against
+     tests/reference_oracle.py (rel 2e-5); run_so_multi at 178/200/500 on
+     a prebuilt grid, whose 178 run equals run_so's in every field and
+     member list.
+ 15. survey box: bench.py's make_box(rng(12345), 2**25, 1_000_000) (46.1M
      particles): solve_rvir with survey None, True and False (the gate's
      verdict, n_survey, seconds, peak device memory; identical results),
      then run_so end to end with its phase seconds and peak device memory;
      its 8 largest and 8 random other solved halos (seed 12345) against
      tests/reference_oracle.py (rel 2e-5), four at a time.
- 17. goldens: the 17 reference scenarios (tests/goldens; inputs from
+ 16. goldens: the 17 reference scenarios (tests/goldens; inputs from
      tests/torch_scenarios.py, which imports nothing of so_tpu) through the
      port's CLI in this process on "cuda", held by tests/torch_compare.py
      to tests/test_torch_golden.py's rules (catalogs to float tolerance,
@@ -146,7 +138,7 @@ script exits nonzero:
      the default routes, then with gather.PIECE_K_MIN at 512 (K3 and
      sort_in_ball on every gather above 512 slots; K3 must run). One
      [golden] line per scenario and route: seconds and launches.
- 18. so_tpu at scale: the card against so_tpu's own outputs, written on
+ 17. so_tpu at scale: the card against so_tpu's own outputs, written on
      the CPU by tests/make_torch_refs.py into tests/torch_refs (the
      inputs' sha256 checked against its manifest): the cold main-path runs
      of phase 4 (standard box, both mass kinds) and the giant runs of
@@ -159,7 +151,7 @@ script exits nonzero:
      scripts/compare_reference_zoom.py's box (7.3M particles, 4,096
      halos) through the port's CLI on "cuda" with its flags, every file
      held to so_tpu's by that script's rules.
- 19. surface: so_tpu's library entry points beside the CLI on the
+ 18. surface: so_tpu's library entry points beside the CLI on the
      standard box (after phase 13): extract_members_sharded on a 1x2 mesh
      of cuda:0 against the CellGrid's extract_members, at the default
      routes and with PIECE_K_MIN at 512 (K3); scan_sorted at (16384,
@@ -170,8 +162,8 @@ script exits nonzero:
      line a check, with its seconds and launches.
 
 Phases 4, 7-10, each sharded run of 12, each rank of 13 (a fresh process)
-each giant run, each run or solve of 14-16, each CLI run of 17, the
-zoom run of 18 and each check of 19 zero every kernel's launch counter
+each giant run, each run or solve of 14 and 15, each CLI run of 16, the
+zoom run of 17 and each check of 18 zero every kernel's launch counter
 before they start and fail unless their kernels grew, K1's sorted form
 among them and, with any gather kernel, the cell enumeration's (9's
 card-against-CPU check runs after its count is read), and log K2's
@@ -1618,10 +1610,6 @@ def phase_giant_vs_cpu():
         gather.PIECE_K_MIN = kmin
 
 
-def route_name(wk):
-    return "off" if wk is None else f"2^{int(wk).bit_length() - 1}"
-
-
 def seconds(fn, *a, **kw):
     """(fn's result, its wall seconds, the card synced before and after)."""
     import torch
@@ -1633,22 +1621,6 @@ def seconds(fn, *a, **kw):
     return out, time.perf_counter() - t0
 
 
-def route_solve(tag, grid, centers, rgtp, wk, **kw):
-    """solve_rvir on ``grid`` with solver.WBOX_K_MIN at ``wk``, counted():
-    (result, seconds, counts with the whole-box dispatches under
-    "wbox")."""
-    from so_tpu_torch.engine import solver
-
-    wk0, solver.WBOX_K_MIN = solver.WBOX_K_MIN, wk
-    n0 = solver.wbox_dispatches
-    try:
-        r, sec = counted(tag, seconds, solver.solve_rvir, grid, centers,
-                         rgtp, THR, **kw, need=("K1", "K1s"))
-    finally:
-        solver.WBOX_K_MIN = wk0
-    return r, sec, dict(read_counts(), wbox=solver.wbox_dispatches - n0)
-
-
 SOLVE_FIELDS = ("code", "mvir", "rvir", "j", "d2cut")
 
 
@@ -1656,68 +1628,6 @@ def same_solve(tag, a, b, fields=SOLVE_FIELDS):
     for f in fields:
         if getattr(a, f).tobytes() != getattr(b, f).tobytes():
             raise AssertionError(f"{tag}: {f} differs")
-
-
-def phase_wbox(giant):
-    """The whole-box route on the giant box with uniform masses: the solve
-    with solver.WBOX_K_MIN forced to 2^15, at its default and off, results
-    bit-identical; then one whole-box stage (a dispatch of the first halos
-    at their last ladder rungs) and its d2 pass timed by CUDA events
-    beside the bytes bound (x, y, z of every particle read once)."""
-    import torch
-
-    from so_tpu_torch.engine import solver
-    from so_tpu_torch.ops.grid import build_grid
-
-    centers, rgtp = giant["centers"], giant["rgtp"]
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    grid = build_grid(giant["pos"], dict(giant["masses"])["uniform"],
-                      device="cuda")
-    ref = None
-    for name, wk in (("forced", 1 << 15), ("default", solver.WBOX_K_MIN),
-                     ("off", None)):
-        tag = f"whole box {name} {route_name(wk)}"
-        r, sec, counts = route_solve(tag, grid, centers, rgtp, wk)
-        if name == "forced" and counts["wbox"] <= 0:
-            raise AssertionError(f"{tag}: no whole-box dispatch")
-        if ref is None:
-            ref = r
-        same_solve(tag, r, ref)
-        log(f"[{tag}] particles={grid.n} halos={centers.shape[0]} solve "
-            f"{sec:.4f} s, whole-box dispatches {counts['wbox']}, launches "
-            f"K1 {counts['K1']} K1s {counts['K1s']} K3 {counts['K3']}; "
-            f"largest K {int(r.kcap.max())}; code, Mvir, Rvir, j, d2cut "
-            "identical to the forced run's")
-    bw = solver._wbox_chunk(grid.n)
-    time_wbox_stage("whole box stage", grid, centers[:bw], rgtp[:bw])
-    log(f"[whole box] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del grid
-    torch.cuda.empty_cache()
-
-
-def time_wbox_stage(tag, grid, centers, rgtp):
-    """One whole-box stage (these halos at their last ladder rungs) and its
-    d2 pass, ms by CUDA events, beside the bytes bound: x, y, z of every
-    particle read once."""
-    import numpy as np
-    import torch
-
-    from so_tpu_torch.engine import solver
-
-    B = centers.shape[0]
-    kmax, _ = solver.rvir_ladder(rgtp, grid.period_np())
-    c = torch.as_tensor(centers, device="cuda")
-    rad = torch.as_tensor(solver.ladder_radius(rgtp, kmax), device="cuda")
-    thr = np.float32([THR])
-    ms = cuda_ms(lambda: solver._whole_box_stage(grid, c, rad, thr, 8), 3)
-    d2_ms = cuda_ms(lambda: solver.whole_box_d2(grid, c), 3)
-    n_in = int((solver.whole_box_d2(grid, c) <= (rad * rad)[:, None]).sum())
-    b_ms, by = bound(12 * grid.n + 16 * B, 0)
-    log(f"[{tag}] B={B} N={grid.n} ({n_in} in-ball values sorted): "
-        f"{ms:.4f} ms by events, of which the d2 pass {d2_ms:.4f} ms; bound "
-        f"{b_ms:.4f} ms ({by}: x, y, z of every particle once)")
 
 
 def host_peak_gib():
@@ -2216,15 +2126,13 @@ def phase_at_scale():
 
 def phase_512():
     """so_tpu's 512^3 catalog (experiments/scale512.py): make_box(rng(12345),
-    512**3, 65536), uniform masses, Delta 178. run_so once on "cuda"; the
-    solve again on a prebuilt grid with the other WBOX_K_MIN setting (off
-    if the default routes, 2^15 if not), bit-identical on every halo; 4
+    512**3, 65536), uniform masses, Delta 178. run_so once on "cuda"; 4
     largest solved and 4 random halos against the oracle; run_so_multi at
-    178/200/500, whose 178 run equals run_so's in every field."""
+    178/200/500 on a prebuilt grid, whose 178 run equals run_so's in every
+    field."""
     import numpy as np
     import torch
 
-    from so_tpu_torch.engine import solver
     from so_tpu_torch.engine.pipeline import SOParams, run_so, run_so_multi
     from so_tpu_torch.ops.grid import build_grid
 
@@ -2238,33 +2146,10 @@ def phase_512():
     G = centers.shape[0]
     out, e2e, counts = counted_run("512^3 run_so", run_so, ps, catalog(),
                                    SOParams(threshold=THR, device="cuda"))
-    log_run(f"512^3 run_so, WBOX_K_MIN {route_name(solver.WBOX_K_MIN)}",
-            out, e2e, G, counts)
+    log_run("512^3 run_so", out, e2e, G, counts)
 
-    t0 = time.perf_counter()
-    grid = build_grid(ps.pos, ps.mass, vel=ps.vel, ptype=ps.ptype_all(),
-                      mark=ps.mark, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[512^3] grid for the solve and --deltas: "
-        f"{time.perf_counter() - t0:.3f} s")
-    # the other setting: the giant tiers (above 2^21 slots) through the
-    # whole box when the default keeps them on the gather route
-    other = None if solver.WBOX_K_MIN is not None else 1 << 21
-    tag = f"512^3 solve, WBOX_K_MIN {route_name(other)}"
-    torch.cuda.reset_peak_memory_stats()
-    r, sec, c2 = route_solve(tag, grid, centers, rgtp, other)
-    same_solve(tag, r, out.solve)
-    log(f"[{tag}] solve {sec:.3f} s ({G / sec:.0f} solves/s), whole-box "
-        f"dispatches {c2['wbox']}, launches K1 {c2['K1']} K1s {c2['K1s']} "
-        f"K3 {c2['K3']}: code, Mvir, Rvir, j, d2cut of all {G} halos "
-        "identical to run_so's; peak device memory (the grid included) "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del r
     ok = np.nonzero(out.solve.code == 0)[0]
     big = ok[np.argsort(out.solve.j[ok], kind="stable")[-4:]]
-    time_wbox_stage("512^3 whole box stage", grid, centers[big[-1:]],
-                    rgtp[big[-1:]])
-
     rnd = np.random.default_rng(SEED).choice(G, 4, replace=False)
     t0 = time.perf_counter()
     oracle_check("512^3", ps, out, centers, rgtp, list(big) + list(rnd))
@@ -2273,6 +2158,11 @@ def phase_512():
         f"{out.solve.code[rnd].tolist()}) equal the oracle (code, Mvir, "
         f"Rvir to 2e-5); {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    grid = build_grid(ps.pos, ps.mass, vel=ps.vel, ptype=ps.ptype_all(),
+                      mark=ps.mark, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[512^3] grid for --deltas: {time.perf_counter() - t0:.3f} s")
     runs, e2e_m, counts = counted_run(
         "512^3 run_so_multi", run_so_multi, ps, catalog(),
         SOParams(threshold=THR, device="cuda"), (THR, 200.0, 500.0),
@@ -2311,14 +2201,14 @@ def phase_survey_box():
     res = {}
     for survey in (None, True, False):
         tag = f"survey box, survey={survey}"
-        r, sec, counts = route_solve(tag, grid, centers, rgtp,
-                                     solver.WBOX_K_MIN, survey=survey)
+        r, sec = counted(tag, seconds, solver.solve_rvir, grid, centers,
+                         rgtp, THR, survey=survey, need=("K1", "K1s"))
+        counts = read_counts()
         res[survey] = r
         same_solve(tag, r, res[None])
         log(f"[{tag}] solve {sec:.3f} s ({G / sec:.0f} solves/s), "
             f"n_survey {r.n_survey}, launches K1 {counts['K1']} K1s "
-            f"{counts['K1s']} K3 {counts['K3']}, whole-box dispatches "
-            f"{counts['wbox']}")
+            f"{counts['K1s']} K3 {counts['K3']}")
     # past its sample the gate either stops (at most SURVEY_SAMPLE halos
     # resolved) or classifies the rest; the forced pass, grouped into other
     # dispatches, may resolve a few halos more or fewer
@@ -3100,7 +2990,6 @@ def main():
     timed("cli paths", counted, "cli paths", phase_cli_paths, small)
     timed("--distributed 2^18", phase_distributed_paths)
     timed("giant", phase_giant, giant)
-    timed("whole box", phase_wbox, giant)
     del giant
     timed("giant vs cpu", phase_giant_vs_cpu)
     timed("so_tpu at scale", phase_at_scale)

@@ -10,8 +10,7 @@ solver.solve_rvir is this loop at one threshold.
 
 The give-up ladder and the -1 check depend only on geometry and counts
 (kd2.c:765-778), so the escalation tracks one ball per halo and a
-(T,)-vector of verdicts. On a uniform-mass CellGrid, tiers above
-solver.WBOX_K_MIN take the whole-box stage (solver._whole_box_stage).
+(T,)-vector of verdicts.
 """
 
 from __future__ import annotations
@@ -24,10 +23,9 @@ import torch
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
 from ..profiling import counts, span
-from . import solver
-from .solver import (DK, SOLVE_SLOT_BUDGET, _chunk_for, _dispatch_chunks,
-                     _k_limit, _pick_level_span, _row_ladder, _wbox_chunk,
-                     _whole_box_stage, count_dispatch, enclosed_density,
+from .solver import (DK, SOLVE_SLOT_BUDGET, SolveResult, _chunk_for,
+                     _dispatch_chunks, _k_limit, _pick_level_span,
+                     _row_ladder, count_dispatch, enclosed_density,
                      ladder_radius, pack_block, rvir_ladder,
                      rvir_reference_bits, scan_verdict, survey_pass)
 
@@ -42,6 +40,15 @@ class MultiSolveResult:
     d2cut: np.ndarray   # (T, G) f32
     kcap: np.ndarray    # (G,) i64 largest capacity each halo was gathered at
     n_survey: int = 0   # halos the survey pre-pass resolved at every threshold
+
+    def at(self, t: int) -> SolveResult:
+        """Threshold ``t``'s SolveResult: copies of row t, vcm zero (the
+        member pass fills it)."""
+        return SolveResult(code=self.code[t].copy(), mvir=self.mvir[t].copy(),
+                           rvir=self.rvir[t].copy(), j=self.j[t].copy(),
+                           d2cut=self.d2cut[t].copy(),
+                           vcm=np.zeros((self.code.shape[1], 3), np.float32),
+                           kcap=self.kcap.copy(), n_survey=self.n_survey)
 
 
 def _multi_stage(grid: CellGrid, level: int, K: int, S: int, n_members: int,
@@ -83,19 +90,17 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     Spans (children of the caller's): solve.plan (the host's set-up, each
     round's live set and capacity tiers, each tier's radii and level),
     solve.survey (the pre-pass), solve.dispatch (one gather stage: its
-    _multi_stage spans and solve.apply, the verdicts and escalation) and
-    solve.wbox (one whole-box stage and its solve.apply). Counts:
-    solve.rounds, solve.dispatches, solve.halo_gathers (halos over all
-    dispatches, the survey's and whole-box ones too),
-    solve.overflow_regathers and solve.ball_regrows (halos sent to
-    another round by overflow or by a grown ball). At more than one
-    threshold also, for every dispatch, the survey's classify and
-    whole-box stages included: multi.verdicts, the T x B (halo, threshold)
-    verdicts it scans, and multi.verdicts_settled, those of them whose
-    pair was resolved before the dispatch (a halo rides on until every
-    threshold has resolved). Host counts, from ``resolved`` only. At one
-    threshold nothing is shared (no settled pair is rescanned), so
-    solve_rvir's path counts what it did."""
+    _multi_stage spans and solve.apply, the verdicts and escalation).
+    Counts: solve.rounds, solve.dispatches, solve.halo_gathers (halos
+    over all dispatches, the survey's too), solve.overflow_regathers and
+    solve.ball_regrows (halos sent to another round by overflow or by a
+    grown ball). At more than one threshold also, for every dispatch, the
+    survey's classify stages included: multi.verdicts, the T x B (halo,
+    threshold) verdicts it scans, and multi.verdicts_settled, those of
+    them whose pair was resolved before the dispatch (a halo rides on
+    until every threshold has resolved). Host counts, from ``resolved``
+    only. At one threshold nothing is shared (no settled pair is
+    rescanned), so solve_rvir's path counts what it did."""
     with span("solve.plan"):
         thresholds = np.asarray(thresholds, np.float32)
         T = thresholds.shape[0]
@@ -132,11 +137,6 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
         minus1_open = np.ones(G, bool)
         kl = _k_limit(grid)
         k_cap_max = max(2 * kl, k0_cap)
-        # the whole-box route: a single-device uniform-mass grid only (so
-        # never under --mesh or --distributed), for tiers above WBOX_K_MIN
-        # slots
-        wk = (solver.WBOX_K_MIN if isinstance(grid, CellGrid)
-              and grid.uniform_mass is not None else None)
 
     n_survey = 0
     if survey is not False and not resolved.all():
@@ -226,54 +226,22 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
             counts[("solve.rounds",)] += 1
             live = np.nonzero(~resolved.all(axis=0))[0]
             # unify the capacity tier across a tail that fits one dispatch;
-            # otherwise only within a x16 band of the largest cap. With the
-            # whole-box route live, only the gather tiers unify: a halo
-            # lifted into a whole-box tier would pay a full-box pass it
-            # does not need
-            sub = live if wk is None else live[np.minimum(cur_cap[live], kl)
-                                               <= wk]
-            if rnd > 1 and sub.size:
-                capu = cur_cap[sub].max()
-                if sub.size <= _chunk_for(grid.parts * int(min(capu, kl)),
-                                          SOLVE_SLOT_BUDGET):
-                    cur_cap[sub] = capu
+            # otherwise only within a x16 band of the largest cap
+            if rnd > 1:
+                capu = cur_cap[live].max()
+                if live.size <= _chunk_for(grid.parts * int(min(capu, kl)),
+                                           SOLVE_SLOT_BUDGET):
+                    cur_cap[live] = capu
                 else:
-                    cur_cap[sub[cur_cap[sub] * 16 > capu]] = capu
+                    cur_cap[live[cur_cap[live] * 16 > capu]] = capu
             tiers = np.unique(cur_cap[live])
         for capacity in tiers:
             with span("solve.plan"):
                 sel = live[cur_cap[live] == capacity]
                 K = int(min(capacity, kl))
-                wbox = wk is not None and K > wk
-                if wbox:
-                    # a halo whose -1 verdict is closed jumps to its last
-                    # rung; a still-open one (every earlier round
-                    # overflowed, so it is still at rung 1) first decides
-                    # -1 at its current rung
-                    k_dst = np.where(minus1_open[sel],
-                                     np.minimum(cur_k[sel], kmax[sel]),
-                                     kmax[sel])
-                    radii = ladder_radius(rgtp[sel], k_dst)
-                    bw = _wbox_chunk(grid.n)
-                else:
-                    k_eff = np.minimum(cur_k[sel], kmax[sel])
-                    radii = ladder_radius(rgtp[sel], k_eff)
-                    level, S = _pick_level_span(grid, float(radii.max()))
-            if wbox:
-                for lo in range(0, sel.size, bw):
-                    with span("solve.wbox"):
-                        part = sel[lo:lo + bw]
-                        count_dispatch(part)
-                        count_verdicts(part)
-                        out = _whole_box_stage(
-                            grid, torch.as_tensor(centers[part], device=dev),
-                            torch.as_tensor(radii[lo:lo + part.size],
-                                            device=dev),
-                            thresholds, n_members)
-                        with span("solve.apply"):
-                            apply_block(part, *out,
-                                        k_dst[lo:lo + part.size], grid.n)
-                continue
+                k_eff = np.minimum(cur_k[sel], kmax[sel])
+                radii = ladder_radius(rgtp[sel], k_eff)
+                level, S = _pick_level_span(grid, float(radii.max()))
             for lo, part in _dispatch_chunks(sel, grid.parts * K):
                 with span("solve.dispatch"):
                     count_dispatch(part)

@@ -182,7 +182,6 @@ def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
     post-solve a "multi.post" span."""
     dev = _run_device(params, mesh)
     timer = PhaseTimer(device=dev)
-    runs: list[SORun] = []
     with profile_trace(params.profile_dir, dev), span("run_so_multi"):
         grid, centers, rgtp = _grid_and_centers(particles, catalog, params,
                                                 dev, timer, grid, mesh)
@@ -191,21 +190,28 @@ def run_so_multi(particles: ParticleSet, catalog: GroupCatalog,
             multi = solve_rvir_multi(grid, centers, rgtp, thresholds,
                                      n_members=params.n_members,
                                      survey=params.survey)
-        for t in range(len(thresholds)):
-            solve_t = SolveResult(
-                code=multi.code[t].copy(), mvir=multi.mvir[t].copy(),
-                rvir=multi.rvir[t].copy(), j=multi.j[t].copy(),
-                d2cut=multi.d2cut[t].copy(),
-                vcm=np.zeros((catalog.n, 3), np.float32))
-            with span("multi.post"):
-                run = _post_solve(grid, particles, catalog, centers,
-                                  solve_t, params, timer)
-            run.solve_seconds = _time.perf_counter() - t0
-            runs.append(run)
-        for run in runs:
-            run.phases = dict(timer.phases)
+        runs = _post_solve_multi(grid, particles, catalog, centers, multi,
+                                 params, timer, t0)
     if params.verbose:
         timer.report()
+    return runs
+
+
+def _post_solve_multi(grid, particles, catalog, centers, multi, params,
+                      timer, t0: float, **hooks) -> list[SORun]:
+    """_post_solve once per threshold of ``multi`` (a MultiSolveResult),
+    each in a "multi.post" span; ``hooks`` are _post_solve's arguments for
+    a --distributed rank, ``t0`` the perf_counter the runs' solve_seconds
+    count from."""
+    runs: list[SORun] = []
+    for t in range(multi.code.shape[0]):
+        with span("multi.post"):
+            run = _post_solve(grid, particles, catalog, centers,
+                              multi.at(t), params, timer, **hooks)
+        run.solve_seconds = _time.perf_counter() - t0
+        runs.append(run)
+    for run in runs:
+        run.phases = dict(timer.phases)
     return runs
 
 

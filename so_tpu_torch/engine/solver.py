@@ -26,13 +26,6 @@ round loop and drops the TPU's dispatch-shaping machinery. The scan is
 split into its threshold-free half (enclosed_density) and a verdict per
 threshold (scan_verdict); the round loop itself is multi.solve_rvir_multi,
 and solve_rvir is its one-threshold case.
-
-On a uniform-mass grid, capacity tiers above WBOX_K_MIN go to the
-whole-box terminal stage instead (_whole_box_stage): d2 of every particle
-to each center, no cells, no capacity, so no overflow. A halo whose -1
-verdict is closed jumps straight to its last ladder rung there: by the
-equivalence above, the one scan at that rung gives the verdict any path
-of escalations would.
 """
 
 from __future__ import annotations
@@ -44,7 +37,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.gather import min_image, unsorted_gather
+from ..ops.gather import unsorted_gather
 from ..ops.grid import CellGrid
 from ..ops.ieee import cbrt_f32, sqrt_rn
 from ..ops.ranges import S_MAX  # largest cell-cube side a gather enumerates
@@ -55,12 +48,6 @@ FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
 SOLVE_SLOT_BUDGET = 1 << 26   # B*K slots per solve dispatch
 FUSED_SLOT_BUDGET = 1 << 25   # B*K slots per fused dispatch (five channels)
-# Capacity tiers above this many slots take the whole-box stage on a
-# uniform-mass CellGrid; None keeps every tier on the gather route. None is
-# wbox_study.py's pick on the card: the whole box wins on a box of a few
-# giants and loses by 5x and more on the 512^3 catalog (PERF.md).
-WBOX_K_MIN = None
-wbox_dispatches = 0           # whole-box stages run (a counter, as K1's)
 
 
 def rvir_reference_bits(mvir, thr) -> np.ndarray:
@@ -239,76 +226,6 @@ def pack_block(n_in, overflow, outs):
         flts = torch.stack([torch.stack([o["mvir"], o["d2cut"]], dim=1)
                             for o in outs])
         return ints.cpu().numpy(), per_t.cpu().numpy(), flts.cpu().numpy()
-
-
-def whole_box_d2(grid: CellGrid, centers):
-    """(B, N) min-image d2 of every payload row to each center: ops/gather.
-    min_image's association (the shifted center first) and the
-    left-associated dx*dx + dy*dy + dz*dz, each op rounded once, as the
-    gather kernels compute it."""
-    n = grid.n
-    d2 = None
-    for ax in range(3):
-        d = min_image(centers[:, ax:ax + 1], grid.soa8t[ax, None, :n],
-                      grid.period[ax])
-        d.mul_(d)
-        d2 = d if d2 is None else d2.add_(d)
-    return d2
-
-
-def _wbox_ladder(grid: CellGrid) -> torch.Tensor:
-    """The grid's (N,) serial-f32 uniform-mass ladder on its device, built
-    once with np.cumsum and kept on the grid; whole-box stages slice it.
-    It stays out of _mass_ladder_on's cache, whose entries would pin one
-    such array a width."""
-    lad = getattr(grid, "_wbox_lad", None)
-    if lad is None:
-        lad = torch.as_tensor(np.cumsum(np.full(
-            grid.n, np.float32(grid.uniform_mass), np.float32)),
-            device=grid.device)
-        grid._wbox_lad = lad
-    return lad
-
-
-def _wbox_chunk(n_particles: int) -> int:
-    """Halos per whole-box dispatch: B * 2^ceil(log2 N) <= 2^27, at most
-    64."""
-    np2 = 1 << int(np.ceil(np.log2(max(n_particles, 2))))
-    return max(1, min(64, (1 << 27) // np2))
-
-
-def _whole_box_stage(grid: CellGrid, centers, radii, thresholds,
-                     n_members: int):
-    """The terminal tier of a uniform-mass grid, for T thresholds: d2 of
-    every particle (whole_box_d2), so overflow is impossible. Only the
-    in-ball values are sorted: each keyed row << 32 | d2 bits (d2 >= +0,
-    so its bits order as its values), one sort, laid out into (B, n_max)
-    rows padded with +inf. With one mass the scan reads values only, and
-    only below n_in, so these rows give the verdicts of a full-row sort
-    (equal d2 are interchangeable: the sort need not be stable). Returns
-    pack_block's block, overflow all False."""
-    global wbox_dispatches
-    wbox_dispatches += 1
-    d2 = whole_box_d2(grid, centers)
-    B = d2.shape[0]
-    dev = d2.device
-    inball = d2 <= (radii * radii)[:, None]
-    n_in = inball.sum(dim=1)
-    row = torch.repeat_interleave(torch.arange(B, device=dev), n_in)
-    key = (row << 32) | d2[inball].view(torch.int32).long()
-    del d2, inball
-    key = torch.sort(key).values
-    start = torch.cumsum(n_in, 0) - n_in
-    n_max = max(1, int(n_in.max()))
-    d2_s = torch.full((B, n_max), torch.inf, device=dev)
-    d2_s[row, torch.arange(key.numel(), device=dev) - start[row]] = (
-        (key & 0xFFFFFFFF).int().view(torch.float32))
-    um = grid.uniform_mass
-    cum, rho = enclosed_density(d2_s, None, n_in, um,
-                                _wbox_ladder(grid)[:n_max])
-    outs = [scan_verdict(d2_s, None, n_in, cum, rho, thr, n_members, um)
-            for thr in thresholds]
-    return pack_block(n_in, torch.zeros_like(n_in, dtype=torch.bool), outs)
 
 
 def _classify_stage(grid: CellGrid, level: int, K: int, S: int,
@@ -541,9 +458,5 @@ def solve_rvir(grid: CellGrid, centers: np.ndarray, rgtp: np.ndarray,
     says what ``survey`` and ``progress`` do."""
     from .multi import solve_rvir_multi   # multi builds on this module
 
-    r = solve_rvir_multi(grid, centers, rgtp, [thr], n_members, k0_cap,
-                         survey, progress=progress)
-    return SolveResult(code=r.code[0], mvir=r.mvir[0], rvir=r.rvir[0],
-                       j=r.j[0], d2cut=r.d2cut[0],
-                       vcm=np.zeros((centers.shape[0], 3), np.float32),
-                       kcap=r.kcap, n_survey=r.n_survey)
+    return solve_rvir_multi(grid, centers, rgtp, [thr], n_members, k0_cap,
+                            survey, progress=progress).at(0)

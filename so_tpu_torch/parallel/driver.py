@@ -463,16 +463,14 @@ def run_so_multi_distributed(snapshot_path: str, catalog, params,
                              transport=None):
     """run_so_multi for one rank of a --distributed run (--deltas): one
     segment grid, the shared-gather multi solve, then the post-solve per
-    threshold with the segment hooks; each SORun equals a
-    run_so_distributed at its threshold."""
+    threshold with the segment hooks, each a "multi.post" span; each SORun
+    equals a run_so_distributed at its threshold."""
     from ..engine.multi import solve_rvir_multi
-    from ..engine.pipeline import _post_solve
-    from ..engine.solver import SolveResult
+    from ..engine.pipeline import _post_solve_multi
     from ..profiling import span
 
     transport = transport or TorchTransport()
     _, timer, trace = _rank_run(params, transport)
-    runs: list = []
     with trace, span("run_so_multi_distributed"):
         pset, sgrid, centers, rgtp, start, count, n_global = _dist_setup(
             snapshot_path, catalog, params, standard, parts_per_host,
@@ -482,19 +480,9 @@ def run_so_multi_distributed(snapshot_path: str, catalog, params,
             multi = solve_rvir_multi(sgrid, centers, rgtp, thresholds,
                                      n_members=params.n_members,
                                      survey=params.survey)
-        for t in range(len(thresholds)):
-            solve_t = SolveResult(
-                code=multi.code[t].copy(), mvir=multi.mvir[t].copy(),
-                rvir=multi.rvir[t].copy(), j=multi.j[t].copy(),
-                d2cut=multi.d2cut[t].copy(),
-                vcm=np.zeros((catalog.n, 3), np.float32))
-            run = _post_solve(sgrid, pset, catalog, centers, solve_t, params,
-                              timer, **_hooks(pset, start, count, n_global,
-                                              transport))
-            run.solve_seconds = _time.perf_counter() - t0
-            runs.append(run)
-        for run in runs:
-            run.phases = dict(timer.phases)
+        runs = _post_solve_multi(
+            sgrid, pset, catalog, centers, multi, params, timer, t0,
+            **_hooks(pset, start, count, n_global, transport))
     if params.verbose and transport.pid == 0:
         timer.report()
     return runs

@@ -1221,39 +1221,3 @@ def test_scan_sorted_cuda_matches_cpu(dev, uniform):
     bound = ((n + 2) * 2.0 ** -23 * absum / w["mvir"][:, None]).numpy()
     diff = np.abs(g["vcm"].cpu().numpy() - w["vcm"].numpy())
     assert (diff[found] <= bound[found]).all()
-
-
-def test_whole_box_route_cuda_matches_cpu(dev, monkeypatch):
-    """solver.WBOX_K_MIN lowered to 256 on a uniform-mass box: the
-    whole-box stage runs on the card, and the solve and the multi solve
-    give the CPU's bits, which equal the gather-only route's."""
-    from so_tpu_torch.engine import multi, solver
-
-    rng, pos, _, _, _, _ = _box(12, 30000)
-    mass = np.full(pos.shape[0], np.float32(1.0 / pos.shape[0]))
-    G = 32
-    centers = rng.uniform(-0.5, 0.5, (G, 3)).astype(np.float32)
-    centers[:16] = rng.normal(scale=0.01, size=(16, 3))
-    rgtp = rng.uniform(0.004, 0.03, G).astype(np.float32)
-    rgtp[0] = 1e-5
-    grids = {d: build_grid(pos, mass, device=d) for d in ("cuda", "cpu")}
-
-    def solve(d):
-        one = solver.solve_rvir(grids[d], centers, rgtp, 178.0, k0_cap=64,
-                                survey=False)
-        many = multi.solve_rvir_multi(grids[d], centers, rgtp,
-                                      [100.0, 178.0], k0_cap=64,
-                                      survey=False)
-        return [getattr(one, f) for f in ("code", "mvir", "rvir", "j",
-                                          "d2cut")] + [
-            getattr(many, f) for f in ("code", "mvir", "rvir", "j", "d2cut")]
-
-    base = solve("cuda")
-    monkeypatch.setattr(solver, "WBOX_K_MIN", 256)
-    n0 = solver.wbox_dispatches
-    g = solve("cuda")
-    assert solver.wbox_dispatches > n0
-    c = solve("cpu")
-    assert (g[0] == 0).sum() >= 4 and g[0][0] == -1
-    for a, b, w in zip(g, c, base):
-        assert a.tobytes() == b.tobytes() == w.tobytes()

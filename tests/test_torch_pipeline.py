@@ -172,11 +172,10 @@ def test_unported_options_raise(option, message, tmp_path, capsys,
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Full CPU runs through the port's CLI, plain, through the whole-box
-    route (solver.WBOX_K_MIN at 0: the same files but for the run time),
-    with -pot --deltas --survey, with --checkpoint, with --mesh 2x2
-    (so_tpu_torch.parallel) and as the one rank of a --distributed gloo
-    group (torchrun's variables set; so_tpu_torch.parallel.driver), leave
+    """Full CPU runs through the port's CLI, plain, with -pot --deltas
+    --survey, with --checkpoint, with --mesh 2x2 (so_tpu_torch.parallel)
+    and as the one rank of a --distributed gloo group (torchrun's
+    variables set; so_tpu_torch.parallel.driver), leave
     jax, so_tpu (any module) and bench unimported; the native conflict
     pass is the port's own library, built under so_tpu_torch/_build/ (so
     nothing is built into so_tpu/)."""
@@ -194,15 +193,6 @@ args = {args!r}
 d = {str(tmp_path)!r}
 base = ["-i", d + "/cat.gtp", "--tipsy", d + "/snap.bin", "--device", "cpu"]
 assert so_tpu_torch.cli.main(base + ["-o", d + "/got"] + args) == 0
-import so_tpu_torch.engine.solver as solver
-wk, solver.WBOX_K_MIN = solver.WBOX_K_MIN, 0     # every tier: whole box
-assert so_tpu_torch.cli.main(base + ["-o", d + "/wbox"] + args) == 0
-assert solver.wbox_dispatches > 0
-solver.WBOX_K_MIN = wk
-def body(name):                        # the file but for its run time
-    return [ln for ln in open(d + name, "rb") if b"# Run on" not in ln]
-for ext in (".sogrp", ".sogtp", ".sovcirc"):
-    assert body("/wbox" + ext) == body("/got" + ext), ext
 assert so_tpu_torch.cli.main(base + ["-o", d + "/multi", "-pot", "--deltas",
                                      "178,500", "--survey"] + args) == 0
 assert so_tpu_torch.cli.main(base + ["-o", d + "/ck", "--checkpoint",

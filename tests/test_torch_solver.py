@@ -143,16 +143,20 @@ def test_solve_matches_so_tpu(name):
         assert abs(int(got.j[h]) - ref["j"]) <= 1
 
 
-def test_capacity_escalation_matches_so_tpu():
+@pytest.mark.parametrize("uniform", [False, True],
+                         ids=["general", "uniform"])
+def test_capacity_escalation_matches_so_tpu(uniform):
     """A dense clump at a tiny first capacity: overflow -> x4 regathers
     and ladder growth take several rounds; results are path-independent,
-    and ``progress`` reports the resolved count after each round.
+    and ``progress`` reports the resolved count after each round. On
+    uniform masses the scan reads the mass ladder, not K2.
     so_tpu runs its XLA row gather here (its slab kernel's interpret mode
     is covered above and agrees with it bit for bit, test_pallas.py)."""
-    data, centers, rgtp, thr = _clumpy(23, False)
+    data, centers, rgtp, thr = _clumpy(23, uniform)
     want = jax_solve_rvir(jax_build_grid(data["pos"], data["mass"], m=3),
                           centers, rgtp, thr)
     grid = build_grid(data["pos"], data["mass"], m=3, device="cpu")
+    assert (grid.uniform_mass is not None) == uniform
     seen = []
     got = solve_rvir(grid, centers, rgtp, thr, k0_cap=256,
                      progress=lambda done, total: seen.append((done, total)))

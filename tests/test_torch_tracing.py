@@ -1,12 +1,15 @@
 """The port's span and counter recorder (so_tpu_torch.profiling): nesting,
 totals and self time; the spans and counts a CPU run_so makes, with
 recording on and off; run_so_multi's verdict counts and post-solve spans
-(and run_so's counts without them); the shared clock with torch.profiler;
+(and run_so's counts without them), the post-solve spans of
+run_so_multi_distributed at one gloo rank; the shared clock with
+torch.profiler;
 K1's and K3's byte counts against the reckoning written out here from
 cell_ranges' output; PhaseTimer's report of the spans inside each phase."""
 
 import io
 import os
+import socket
 import sys
 import time
 
@@ -16,7 +19,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torch_scenarios import make_clumpy_box  # noqa: E402
+from torch_scenarios import make_clumpy_box, write_snapshot  # noqa: E402
 
 from so_tpu_torch import profiling  # noqa: E402
 from so_tpu_torch.engine import solver  # noqa: E402
@@ -27,13 +30,13 @@ from so_tpu_torch.io.tipsy import (DARK, GAS, STAR, ParticleSet,  # noqa: E402
                                    TipsyHeader)
 from so_tpu_torch.ops import gather, ranges  # noqa: E402
 from so_tpu_torch.ops.grid import build_grid  # noqa: E402
+from so_tpu_torch.parallel import run_so_multi_distributed  # noqa: E402
 from so_tpu_torch.profiling import PhaseTimer, span  # noqa: E402
 
 PHASES = {"grid build", "R_Delta solve", "members + derived (fused)",
           "conflict protocol", "derived quantities", "stats"}
 # every span a single-device run_so opens on the CPU while recording
-# (gather.bytes only then; phase.sync only syncs a card); solve.wbox only
-# where the whole-box tier is on
+# (gather.bytes only then; phase.sync only syncs a card)
 SPANS = PHASES | {
     "run_so", "grid.ptype", "grid.upload", "grid.sort", "grid.payload",
     "solve.plan", "solve.survey", "solve.dispatch", "solve.ranges",
@@ -267,27 +270,59 @@ def test_run_so_multi_verdict_counts(thresholds):
         assert 0 < counts["multi.verdicts_settled"] < counts["multi.verdicts"]
 
 
-def test_run_so_multi_verdict_counts_whole_box(monkeypatch):
-    """The whole-box stages count their verdicts too."""
-    monkeypatch.setattr(solver, "WBOX_K_MIN", 1024)
-    _, counts, spans = _multi_added(DELTAS)
-    assert any(r[0] == "solve.wbox" for r in spans)
-    assert counts["multi.verdicts"] == 3 * counts["solve.halo_gathers"]
+def assert_post_spans(totals, spans, root):
+    """One multi.post span a threshold of DELTAS, children of ``root``,
+    each holding that threshold's post-solve phases."""
+    assert totals[("multi.post", "n")] == len(DELTAS)
+    sid = {r[3]: r for r in spans}
+    posts = [r for r in spans if r[0] == "multi.post"]
+    assert {sid[r[4]][0] for r in posts} == {root}
+    for phase in ("members + derived (fused)", "conflict protocol",
+                  "stats"):
+        parents = [sid[r[4]] for r in spans if r[0] == phase]
+        assert len(parents) == len(DELTAS)
+        assert all(p[0] == "multi.post" for p in parents)
 
 
 def test_run_so_multi_post_spans():
     """One multi.post span a threshold, children of run_so_multi, each
     holding that threshold's post-solve phases."""
     totals, _, spans = _multi_added(DELTAS)
-    assert totals[("multi.post", "n")] == len(DELTAS)
-    sid = {r[3]: r for r in spans}
-    posts = [r for r in spans if r[0] == "multi.post"]
-    assert {sid[r[4]][0] for r in posts} == {"run_so_multi"}
-    for phase in ("members + derived (fused)", "conflict protocol",
-                  "stats"):
-        parents = [sid[r[4]] for r in spans if r[0] == phase]
-        assert len(parents) == len(DELTAS)
-        assert all(p[0] == "multi.post" for p in parents)
+    assert_post_spans(totals, spans, "run_so_multi")
+
+
+def test_run_so_multi_distributed_post_spans(tmp_path):
+    """run_so_multi_distributed as the one rank of a gloo process group
+    opens the same multi.post spans, children of its root span, and its
+    catalogs equal run_so_multi's."""
+    import torch.distributed as dist
+
+    ps, catalog = _box(False)
+    h = ps.header
+    snap = str(tmp_path / "snap.bin")
+    write_snapshot(snap, dict(pos=ps.pos, vel=ps.vel, mass=ps.mass,
+                              phi=ps.phi), split=(h.nsph, h.ndark, h.nstar))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        base = dict(profiling.totals)
+        profiling.start_recording()
+        try:
+            runs = run_so_multi_distributed(snap, catalog(), _params(),
+                                            list(DELTAS))
+        finally:
+            spans = profiling.stop_recording()
+    finally:
+        dist.destroy_process_group()
+    assert_post_spans(_diff(base), spans, "run_so_multi_distributed")
+    want = run_so_multi(ps, catalog(), _params(), list(DELTAS))
+    for got, ref in zip(runs, want):
+        for f in ("code", "mvir", "rvir", "j", "d2cut", "vcm"):
+            np.testing.assert_array_equal(getattr(got.solve, f),
+                                          getattr(ref.solve, f), err_msg=f)
 
 
 def test_run_so_counts_unchanged_by_the_multi_counts():
@@ -304,22 +339,19 @@ def test_run_so_counts_unchanged_by_the_multi_counts():
 
 
 @pytest.mark.parametrize("uniform", [False, True], ids=["general",
-                                                        "uniform_wbox"])
-def test_recording_changes_no_output(recorded, uniform, monkeypatch):
+                                                        "uniform"])
+def test_recording_changes_no_output(recorded, uniform):
     """The catalogs bit for bit with recording on and off; with it off, no
-    span is kept. The uniform box runs the whole-box tier, whose stages
-    are solve.wbox spans."""
+    span is kept. The uniform box's spans are SPANS' too."""
     ps, catalog = _box(uniform)
     if uniform:
-        monkeypatch.setattr(solver, "WBOX_K_MIN", 1024)
         profiling.start_recording()
         try:
             on = run_so(ps, catalog(), _params(True))
         finally:
             spans = profiling.stop_recording()
         names = {r[0] for r in spans}
-        assert "solve.wbox" in names
-        assert names - {"solve.wbox"} <= SPANS
+        assert names <= SPANS
         assert "gather.bytes" not in names   # no device counts asked
     else:
         on = recorded[0]
