@@ -107,12 +107,12 @@ def _grid_and_centers(particles, catalog, params, dev, timer, grid, mesh):
     the optionally recentred centers."""
     if grid is None:
         with timer.phase("grid build"):
-            with span("grid.ptype"):
-                ptype = particles.ptype_all()
+            h = particles.header
             kw = dict(vel=particles.vel,
                       phi=particles.phi if params.b_pot else None,
-                      ptype=ptype, mark=particles.mark,
-                      period=params.period, center=params.center)
+                      mark=particles.mark, period=params.period,
+                      center=params.center,
+                      species_counts=(h.nsph, h.ndark, h.nstar))
             grid = (build_grid(particles.pos, particles.mass, device=dev,
                                **kw) if mesh is None else
                     build_sharded_grid(particles.pos, particles.mass,

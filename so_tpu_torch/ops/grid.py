@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..io.tipsy import DARK, GAS, STAR
 from ..profiling import span
 
 # default slab chunk and its only alternative (choose_chunk)
@@ -131,6 +132,31 @@ def detect_uniform_mass(mass) -> float | None:
     return None
 
 
+def uniform_mass_on_device(mass: torch.Tensor) -> float | None:
+    """detect_uniform_mass of a (N,) f32 tensor where it lies: the same
+    ``==`` test (0.0 equals -0.0, NaN equals nothing), made on the tensor's
+    device, and one read of the verdict and mass[0] together."""
+    if mass.numel() == 0:
+        return None
+    same, first = torch.stack([(mass == mass[0]).all().to(mass.dtype),
+                               mass[0]]).tolist()
+    return first if same else None
+
+
+def species_of_rows(rows: torch.Tensor, species_counts,
+                    first_row: int = 0) -> torch.Tensor:
+    """The int32 species of file rows ``first_row + rows`` from the
+    header's (nsph, ndark, nstar), by ParticleSet.ptype's rule
+    (kdParticleType, kd2.c:135-141): GAS below nsph, DARK below nsph +
+    ndark, STAR past that, rows beyond the counts included. ``rows`` is
+    compared as it is, against the bounds less ``first_row``."""
+    nsph, ndark = int(species_counts[0]), int(species_counts[1])
+    out = torch.full(rows.shape, STAR, dtype=torch.int32, device=rows.device)
+    out.masked_fill_(rows < nsph + ndark - first_row, DARK)
+    out.masked_fill_(rows < nsph - first_row, GAS)
+    return out
+
+
 def choose_m(n_particles: int) -> int:
     """Pick the finest level so mean cell occupancy ~= TARGET_OCCUPANCY."""
     if n_particles <= 1:
@@ -199,7 +225,8 @@ def _level_starts(code_s: torch.Tensor, m: int) -> tuple:
 def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                period=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0),
                m: int | None = None, chunk: int | None = None,
-               valid=None, *, device) -> CellGrid:
+               valid=None, *, device, species_counts=None,
+               first_row: int = 0) -> CellGrid:
     """Build the grid from host particle arrays on ``device`` ("cuda" or
     "cpu"; no default, so a run never lands on a device by accident).
 
@@ -208,22 +235,33 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     to choose_m and choose_chunk of the particle count. Rows where the
     bool mask ``valid`` is False (a particle shard's padding) get a Morton
     code past every cell: they sort to the tail and no cell, so no gather,
-    reaches them. Spans: grid.upload (the host arrays to the device),
-    grid.sort (Morton codes, the stable argsort, the level starts) and
-    grid.payload (the payload and phi in sorted order).
+    reaches them.
+
+    The species come from a ``ptype`` array (one int a row, uploaded), or
+    from ``species_counts``, the header's (nsph, ndark, nstar): row i is
+    then file row ``first_row + i`` and its species is formed on the
+    device from the sorted order (species_of_rows), padding rows 0; with
+    neither, every species is 0. ``uniform_mass`` is tested on the device
+    (uniform_mass_on_device). Spans: grid.upload (the host arrays to the
+    device and the uniform-mass test), grid.sort (Morton codes, the stable
+    argsort, the level starts), grid.ptype (the species in sorted order)
+    and grid.payload (the payload and phi in sorted order).
     """
+    if ptype is not None and species_counts is not None:
+        raise ValueError("build_grid takes a ptype array or species_counts, "
+                         "not both")
     device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
     with span("grid.upload"):
-        um = detect_uniform_mass(mass)
+        mass = torch.as_tensor(np.asarray(mass, np.float32), device=device)
+        um = uniform_mass_on_device(mass)
         pos = torch.as_tensor(np.asarray(pos, np.float32), device=device)
         n = pos.shape[0]
-        mass = torch.as_tensor(np.asarray(mass, np.float32), device=device)
         vel = (torch.zeros((n, 3), **f32) if vel is None else
                torch.as_tensor(np.asarray(vel, np.float32), device=device))
-        ptype = (torch.zeros(n, dtype=torch.int32, device=device)
-                 if ptype is None else
-                 torch.as_tensor(np.asarray(ptype, np.int32), device=device))
+        if ptype is not None:
+            ptype = torch.as_tensor(np.asarray(ptype, np.int32),
+                                    device=device)
         mark = (torch.zeros(n, dtype=torch.bool, device=device)
                 if mark is None else
                 torch.as_tensor(np.asarray(mark, bool), device=device))
@@ -244,13 +282,21 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
         ic = torch.clip((u / period * nc).to(torch.int32), 0, nc - 1)
         code = morton_encode(ic[:, 0], ic[:, 1], ic[:, 2])
         if valid is not None:
-            code = torch.where(torch.as_tensor(np.asarray(valid, bool),
-                                               device=device),
-                               code, SENTINEL_CODE)
+            valid = torch.as_tensor(np.asarray(valid, bool), device=device)
+            code = torch.where(valid, code, SENTINEL_CODE)
         perm = torch.argsort(code, stable=True)
         starts = _level_starts(code[perm], m)
+    with span("grid.ptype"):
+        if ptype is not None:
+            ptype_s = ptype[perm]
+        elif species_counts is not None:
+            ptype_s = species_of_rows(perm, species_counts, first_row)
+            if valid is not None:       # padding rows keep meta 0
+                ptype_s.masked_fill_(~valid[perm], 0)
+        else:
+            ptype_s = torch.zeros(n, dtype=torch.int32, device=device)
     with span("grid.payload"):
-        soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype[perm],
+        soa8t = pack_soa8t(pos[perm], mass[perm], vel[perm], ptype_s,
                            mark[perm], chunk=chunk)
         phi_s = (None if phi is None else
                  torch.as_tensor(np.asarray(phi, np.float32),

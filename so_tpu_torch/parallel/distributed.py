@@ -218,14 +218,17 @@ def build_sharded_grid_segment(mesh, start: int, n_global: int, pos, mass,
                                vel=None, phi=None, ptype=None, mark=None,
                                period=(1.0, 1.0, 1.0),
                                center=(0.0, 0.0, 0.0), m: int | None = None,
-                               uniform_mass: float | None = None, *, comm):
+                               uniform_mass: float | None = None, *, comm,
+                               species_counts=None):
     """The rank's part of a ShardedGrid over ``comm.nproc`` ranks: its
     ``mesh.shape["part"]`` shards, built from its own segment [start,
     start + len(pos)) of the file (grid_segment's). The split, m and chunk
     are parallel.build_sharded_grid's on a mesh of nproc * P_local parts,
     so the merged gathers equal that grid's. ``uniform_mass`` must be the
     global verdict (a rank sees only its segment; run_so_distributed takes
-    it by collective), the same on every rank."""
+    it by collective), the same on every rank. The species come from
+    ``ptype`` (the segment's) or from the header's global
+    ``species_counts``, as build_grid takes them."""
     from .mesh import build_shards
 
     P = mesh.shape["part"]
@@ -236,4 +239,5 @@ def build_sharded_grid_segment(mesh, start: int, n_global: int, pos, mass,
                          f"{want} for {P} parts a rank")
     return build_shards(mesh, pos, mass, vel, phi, ptype, mark, period,
                         center, m, n_global=n_global, nproc=comm.nproc,
-                        start=start, uniform_mass=uniform_mass, comm=comm)
+                        start=start, uniform_mass=uniform_mass, comm=comm,
+                        species_counts=species_counts)

@@ -350,9 +350,10 @@ def _dist_setup(snapshot_path: str, catalog, params, standard: bool,
         sgrid = build_sharded_grid_segment(
             mesh, start, n_global, pset.pos, pset.mass, vel=pset.vel,
             phi=pset.phi if params.b_pot else None,
-            ptype=pset.ptype(start + np.arange(count, dtype=np.int64)),
             mark=pset.mark, period=params.period, center=params.center,
-            uniform_mass=um, comm=transport)
+            uniform_mass=um, comm=transport,
+            species_counts=(pset.header.nsph, pset.header.ndark,
+                            pset.header.nstar))
     centers = np.asarray(catalog.pos, np.float32).copy()
     rgtp = np.asarray(catalog.rgtp, np.float32)
     if params.b_pot:

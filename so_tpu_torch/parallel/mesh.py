@@ -280,25 +280,29 @@ class ShardedGrid:
 
 def build_sharded_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                        period=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0),
-                       m: int | None = None, *, mesh: Mesh) -> ShardedGrid:
+                       m: int | None = None, *, mesh: Mesh,
+                       species_counts=None) -> ShardedGrid:
     """Split the particles in file order into P = mesh.shape["part"] shards
     of ceil(n / P) rows (the last padded with zero-mass rows) and build
     each shard's grid with ops/grid.build_grid on every distinct device of
     its mesh column. m = min(choose_m(n // P), 9) and chunk =
     choose_chunk(n // P, m), as so_tpu picks them; uniform_mass is detected
-    on the real rows."""
+    on the real rows. The species come from ``ptype`` or from the header's
+    ``species_counts``, as build_grid takes them."""
     n = np.shape(pos)[0]
     return build_shards(mesh, pos, mass, vel, phi, ptype, mark, period,
                         center, m, n_global=n, nproc=1, start=0,
-                        uniform_mass=detect_uniform_mass(mass), comm=None)
+                        uniform_mass=detect_uniform_mass(mass), comm=None,
+                        species_counts=species_counts)
 
 
 def build_shards(mesh: Mesh, pos, mass, vel, phi, ptype, mark, period,
                  center, m, *, n_global: int, nproc: int, start: int,
-                 uniform_mass, comm) -> ShardedGrid:
+                 uniform_mass, comm, species_counts=None) -> ShardedGrid:
     """The shards of rows [start, start + len(pos)) of an n_global-particle
     file split over nproc * P shards (P = mesh.shape["part"] a process):
-    build_sharded_grid's split, m and chunk at that shard count."""
+    build_sharded_grid's split, m and chunk at that shard count. With
+    ``species_counts``, shard p's row 0 is file row start + p * nl."""
     pos = np.asarray(pos, np.float32)
     count = pos.shape[0]
     P = mesh.shape["part"]
@@ -327,6 +331,8 @@ def build_shards(mesh: Mesh, pos, mass, vel, phi, ptype, mark, period,
         if (p, dev) not in built:
             g = build_grid(pos_s[p], mass_s[p], period=period, center=center,
                            m=m, chunk=chunk, valid=valid[p], device=dev,
+                           species_counts=species_counts,
+                           first_row=start + p * nl,
                            **{k: v[p] for k, v in fields.items()})
             built[(p, dev)] = dataclasses.replace(
                 g, uniform_mass=uniform_mass,

@@ -862,6 +862,56 @@ def test_cuda_grid_never_takes_the_plain_enumeration(dev, monkeypatch):
     assert ranges.counts[("ranges.kernel",)] - kern == n_calls
 
 
+def test_grid_species_counts_cuda_matches_ptype_array(dev):
+    """build_grid on the card given the header's counts (the species
+    formed on the card) equals the card's and the CPU's builds given
+    ParticleSet.ptype's array bit for bit, as does a 1x2 mesh of the card
+    with a padded shard; the card's uniform-mass test is
+    detect_uniform_mass's."""
+    from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader
+    from so_tpu_torch.ops.grid import (detect_uniform_mass,
+                                       uniform_mass_on_device)
+    from so_tpu_torch.parallel import make_mesh
+    from so_tpu_torch.parallel.mesh import build_sharded_grid
+
+    n = 40001
+    _, pos, mass, vel, _, mark = _box(31, n)
+    counts = (n // 5, n - n // 5 - n // 7, n // 7)
+    ps = ParticleSet(TipsyHeader(1.0, n, 3, *counts), pos, vel, mass,
+                     np.zeros(n, np.float32), np.zeros(n, np.float32), mark)
+    kw = dict(vel=vel, mark=mark)
+
+    def same(a, b):
+        assert a.m == b.m and a.chunk == b.chunk
+        assert a.uniform_mass == b.uniform_mass
+        assert torch.equal(a.soa8t.cpu().view(torch.int32),
+                           b.soa8t.cpu().view(torch.int32))
+        assert torch.equal(a.orig_idx.cpu(), b.orig_idx.cpu())
+        assert all(torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(a.starts, b.starts))
+
+    got = build_grid(pos, mass, species_counts=counts, device=dev, **kw)
+    same(got, build_grid(pos, mass, ptype=ps.ptype_all(), device=dev, **kw))
+    same(got, build_grid(pos, mass, ptype=ps.ptype_all(), device="cpu",
+                         **kw))
+    mesh = make_mesh(1, 2, devices=[dev] * 2)
+    sg = build_sharded_grid(pos, mass, species_counts=counts, mesh=mesh,
+                            **kw)
+    sw = build_sharded_grid(pos, mass, ptype=ps.ptype_all(),
+                            mesh=make_mesh(1, 2, devices=["cpu"] * 2), **kw)
+    assert (sg.cells[0][1].orig_idx < 0).any()
+    for a, b in zip(sg.cells[0], sw.cells[0]):
+        same(a, b)
+    for m in ([0.25] * 9, [0.25] * 8 + [0.2500001], [-0.0, 0.0],
+              [0.5, float("nan")], [0.125], []):
+        m = np.asarray(m, np.float32)
+        want = detect_uniform_mass(m)
+        v = uniform_mass_on_device(torch.as_tensor(m, device=dev))
+        assert (v is None) == (want is None)
+        assert v is None or np.float32(v).tobytes() == (
+            np.float32(want).tobytes())
+
+
 def test_mesh_cuda_matches_run_so_and_cpu(dev):
     """run_so_sharded on a 1x4 mesh of one card (the particles in 4
     shards, every gather merged over them) runs K1's sorted form and K2,

@@ -19,9 +19,15 @@ sys.path.insert(0, HERE)
 
 from so_tpu.ops import build_grid as jax_build_grid  # noqa: E402
 from so_tpu.ops.grid import morton_encode as jax_morton  # noqa: E402
+from so_tpu_torch.io.tipsy import ParticleSet, TipsyHeader  # noqa: E402
 from so_tpu_torch.ops.grid import (build_grid, choose_chunk,  # noqa: E402
-                                   grid_from_arrays, morton_encode,
-                                   payload_width, reads_in_16_bytes)
+                                   detect_uniform_mass, grid_from_arrays,
+                                   morton_encode, payload_width,
+                                   reads_in_16_bytes, uniform_mass_on_device)
+from so_tpu_torch.parallel import make_mesh  # noqa: E402
+from so_tpu_torch.parallel.distributed import grid_segment  # noqa: E402
+from so_tpu_torch.parallel.mesh import (build_shards,  # noqa: E402
+                                        build_sharded_grid)
 
 
 def jax_grid_arrays(g):
@@ -127,3 +133,112 @@ def test_morton_and_chunk_rules():
     for n in (1000, 20000, 40000, 2 ** 21, 2 ** 23):
         for m in range(0, 10):
             assert choose_chunk(n, m) == jax_choose_chunk(n, m), (n, m)
+
+
+def _same_grid(a, b):
+    """Two port grids equal in every field, payload bit for bit."""
+    assert a.m == b.m and a.chunk == b.chunk
+    assert (None if a.uniform_mass is None else
+            np.float32(a.uniform_mass).tobytes()) == (
+        None if b.uniform_mass is None else
+        np.float32(b.uniform_mass).tobytes())
+    assert torch.equal(a.soa8t.view(torch.int32), b.soa8t.view(torch.int32))
+    assert torch.equal(a.orig_idx, b.orig_idx)
+    assert len(a.starts) == len(b.starts)
+    assert all(torch.equal(x, y) for x, y in zip(a.starts, b.starts))
+
+
+# (counts as fractions of n: nsph, ndark, nstar; uniform mass; mark; first
+# file row; how the grid is built)
+SPECIES_CASES = {
+    "interleaved": ((0.2, 0.65, 0.15), False, False, 0, "grid"),
+    "counts_below_n": ((0.3, 0.3, 0.1), True, False, 0, "grid"),
+    "mark": ((0.2, 0.65, 0.15), False, True, 0, "grid"),
+    "row_offset": ((0.4, 0.2, 0.4), False, True, 1500, "grid"),
+    "two_shards": ((0.2, 0.65, 0.15), False, True, 0, "sharded"),
+    "second_rank": ((0.6, 0.2, 0.2), True, True, 0, "segment"),
+}
+
+
+@pytest.mark.parametrize("case", list(SPECIES_CASES))
+def test_species_counts_match_ptype_array(case):
+    """build_grid given the header's counts forms the species column on
+    the device from the sorted order, and gives the grid that the same
+    build given ParticleSet.ptype's array gives, bit for bit: payload
+    (padding rows included), orig_idx, starts and uniform_mass."""
+    fr, uniform, with_mark, first_row, how = SPECIES_CASES[case]
+    n = 4001                            # odd: the last shard is padded
+    pos, mass, vel, _, mark = _particles(23, n, 1.0, 0.0, uniform)
+    nsph, ndark, nstar = (int(f * (n + first_row)) for f in fr)
+    ps = ParticleSet(TipsyHeader(1.0, nsph + ndark + nstar, 3, nsph, ndark,
+                                 nstar), pos, vel, mass,
+                     np.zeros(n, np.float32), np.zeros(n, np.float32),
+                     mark if with_mark else None)
+    counts = (nsph, ndark, nstar)
+    kw = dict(vel=vel, mark=ps.mark)
+    if how == "grid":
+        ptype = ps.ptype(first_row + np.arange(n, dtype=np.int64))
+        want = build_grid(pos, mass, ptype=ptype, device="cpu", **kw)
+        got = build_grid(pos, mass, species_counts=counts,
+                         first_row=first_row, device="cpu", **kw)
+        assert set(ptype.tolist()) == {1, 2, 4}     # DARK, GAS, STAR
+        assert (got.ptype_a().numpy() == ptype[got.orig_idx.numpy()]).all()
+        pairs = [(got, want)]
+    else:
+        mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+        if how == "sharded":
+            want = build_sharded_grid(pos, mass, ptype=ps.ptype_all(),
+                                      mesh=mesh, **kw)
+            got = build_sharded_grid(pos, mass, species_counts=counts,
+                                     mesh=mesh, **kw)
+        else:       # rank 1 of 2: its file segment, its last shard padded
+            start, count = grid_segment(n, 2, 2, 1)
+            seg = slice(start, start + count)
+            common = dict(n_global=n, nproc=2, start=start,
+                          uniform_mass=detect_uniform_mass(mass[seg]),
+                          comm=None)
+            args = (pos[seg], mass[seg], vel[seg], None)
+            rows = start + np.arange(count, dtype=np.int64)
+            want = build_shards(mesh, *args, ps.ptype(rows), ps.mark[seg],
+                                (1.0,) * 3, (0.0,) * 3, None, **common)
+            got = build_shards(mesh, *args, None, ps.mark[seg], (1.0,) * 3,
+                               (0.0,) * 3, None, species_counts=counts,
+                               **common)
+        pairs = list(zip(got.cells[0], want.cells[0]))
+        assert (pairs[-1][0].orig_idx < 0).any()      # padding rows
+    for g, w in pairs:
+        _same_grid(g, w)
+    with pytest.raises(ValueError):
+        build_grid(pos, mass, ptype=ps.ptype_all(), species_counts=counts,
+                   device="cpu")
+
+
+UNIFORM_CASES = {
+    "uniform": [0.25] * 9,
+    "last_differs": [0.25] * 8 + [0.2500001],
+    "signed_zeros": [-0.0, 0.0, -0.0, 0.0],
+    "nan": [0.5, 0.5, float("nan")],
+    "single_row": [0.125],
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("case", list(UNIFORM_CASES))
+def test_uniform_mass_on_device_matches_host(case):
+    """The device test of a uniform mass gives detect_uniform_mass's
+    verdict and value, sign of zero included, and build_grid's grid
+    carries it."""
+    mass = np.asarray(UNIFORM_CASES[case], np.float32)
+    want = detect_uniform_mass(mass)
+    got = uniform_mass_on_device(torch.as_tensor(mass))
+
+    def bits(v):
+        return None if v is None else np.float32(v).tobytes()
+
+    assert bits(got) == bits(want)
+    assert (want is None) == (case in ("last_differs", "nan", "empty"))
+    if mass.size:
+        pos = np.random.default_rng(5).uniform(
+            -0.5, 0.5, (mass.size, 3)).astype(np.float32)
+        assert bits(build_grid(pos, mass, device="cpu").uniform_mass) == (
+            bits(want))
