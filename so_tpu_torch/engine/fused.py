@@ -90,8 +90,9 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
     Spans: fused.probe (the footprints that size the first capacities)
     and a fused.dispatch a stage, with fused.gather (the stage's enqueue),
     fused.fetch (its three fetches), fused.fill (derived.fill), fused.split
-    (the member lists) and fused.vcm. Counts: fused.dispatches and
-    fused.halo_gathers (halos over all dispatches).
+    (the member lists) and fused.vcm. Counts: fused.dispatches,
+    fused.halo_gathers (halos over all dispatches) and fused.member_rows
+    (the member rows fetched to the host, an overflowed dispatch's too).
     """
     G = centers.shape[0]
     dev = grid.device
@@ -122,6 +123,7 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
                 ovf = ovf.cpu().numpy()
                 n_mem = counts_t.cpu().numpy()
                 rows64 = mem.cpu().numpy()
+            counts[("fused.member_rows",)] += int(rows64.size)
             ok = ~ovf
             with span("fused.fill"):
                 derived.fill(part, ok, der)

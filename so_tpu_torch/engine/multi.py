@@ -92,15 +92,17 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
     solve.survey (the pre-pass), solve.dispatch (one gather stage: its
     _multi_stage spans and solve.apply, the verdicts and escalation).
     Counts: solve.rounds, solve.dispatches, solve.halo_gathers (halos
-    over all dispatches, the survey's too), solve.overflow_regathers and
-    solve.ball_regrows (halos sent to another round by overflow or by a
-    grown ball). At more than one threshold also, for every dispatch, the
-    survey's classify stages included: multi.verdicts, the T x B (halo,
-    threshold) verdicts it scans, and multi.verdicts_settled, those of
-    them whose pair was resolved before the dispatch (a halo rides on
-    until every threshold has resolved). Host counts, from ``resolved``
-    only. At one threshold nothing is shared (no settled pair is
-    rescanned), so solve_rvir's path counts what it did."""
+    over all dispatches, the survey's too), solve.giant_dispatches and
+    solve.giant_slots (dispatches at K >= solver.GIANT_K and their B x
+    K), solve.overflow_regathers and solve.ball_regrows (halos sent to
+    another round by overflow or by a grown ball). At more than one
+    threshold also, for every dispatch, the survey's classify stages
+    included: multi.verdicts, the T x B (halo, threshold) verdicts it
+    scans, and multi.verdicts_settled, those of them whose pair was
+    resolved before the dispatch (a halo rides on until every threshold
+    has resolved). Host counts, from ``resolved`` only. At one threshold
+    nothing is shared (no settled pair is rescanned), so solve_rvir's
+    path counts what it did."""
     with span("solve.plan"):
         thresholds = np.asarray(thresholds, np.float32)
         T = thresholds.shape[0]
@@ -244,7 +246,7 @@ def solve_rvir_multi(grid: CellGrid, centers, rgtp, thresholds,
                 level, S = _pick_level_span(grid, float(radii.max()))
             for lo, part in _dispatch_chunks(sel, grid.parts * K):
                 with span("solve.dispatch"):
-                    count_dispatch(part)
+                    count_dispatch(part, K)
                     count_verdicts(part)
                     out = _multi_stage(
                         grid, level, K, S, n_members,

@@ -48,6 +48,7 @@ FOUR_THIRDS_PI = np.float32(4.0 / 3.0 * np.pi)  # rhoEnclosed (kd2.c:592)
 DK = 8             # ladder exponents per grow-ball escalation
 SOLVE_SLOT_BUDGET = 1 << 26   # B*K slots per solve dispatch
 FUSED_SLOT_BUDGET = 1 << 25   # B*K slots per fused dispatch (five channels)
+GIANT_K = 1 << 24             # solve dispatches at this K or more count as giant
 
 
 def rvir_reference_bits(mvir, thr) -> np.ndarray:
@@ -345,10 +346,15 @@ SURVEY_SAMPLE = 1024
 SURVEY_FRAC = 0.25
 
 
-def count_dispatch(part: np.ndarray) -> None:
-    """One solve dispatch over the halos ``part``, in profiling's counts."""
+def count_dispatch(part: np.ndarray, K: int) -> None:
+    """One solve dispatch over the halos ``part`` at capacity K, in
+    profiling's counts; at K >= GIANT_K also solve.giant_dispatches and
+    solve.giant_slots (its B x K)."""
     counts[("solve.dispatches",)] += 1
     counts[("solve.halo_gathers",)] += int(part.size)
+    if K >= GIANT_K:
+        counts[("solve.giant_dispatches",)] += 1
+        counts[("solve.giant_slots",)] += int(part.size) * K
 
 
 def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
@@ -373,7 +379,7 @@ def survey_pass(grid: CellGrid, centers, radii, live, n_members: int, K: int,
             level, S = _pick_level_span(grid, float(rads.max()))
         for lo, part in _dispatch_chunks(idx, grid.parts * K):
             with span("solve.dispatch"):
-                count_dispatch(part)
+                count_dispatch(part, K)
                 packed = _classify_stage(
                     grid, level, K, S, n_members,
                     torch.as_tensor(centers[part], device=dev),

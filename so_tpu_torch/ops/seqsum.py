@@ -20,6 +20,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _cuda
 
 launches = 0                 # kernel launches of seq_cumsum (CUDA only)
@@ -85,6 +86,29 @@ def column_loop(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def count_call(x: torch.Tensor, n_valid) -> None:
+    """One call over (B, K) rows with work to do, in profiling's counts:
+    K2.calls (a host count, always). While profiling keeps device counts
+    (start_recording with device_counts), also K2.chain_adds, the call's
+    longest chain of adds (its largest n_valid, or K without counts), and
+    K2.bytes, what its inputs need: the n_valid f32 read (B x K without
+    counts), the B x K f32 written and the (B,) int64 counts."""
+    B, K = x.shape
+    if not (B and K):
+        return
+    profiling.counts[("K2.calls",)] += 1
+    if not profiling.counting():
+        return
+    if n_valid is None:
+        chain, read = K, B * K
+    else:
+        nv = n_valid.clamp(0, K)
+        chain, read = nv.max(), nv.sum()
+    profiling.count_on_device("K2.chain_adds", chain)
+    profiling.count_on_device(
+        "K2.bytes", 4 * read + 4 * B * K + (0 if n_valid is None else 8 * B))
+
+
 def _seq_cumsum_cuda(x: torch.Tensor, n_valid):
     global launches
     x = x.contiguous()
@@ -118,6 +142,7 @@ def seq_cumsum(x: torch.Tensor, axis: int = 1, n_valid=None) -> torch.Tensor:
             or n_valid.dtype.is_floating_point or n_valid.dtype == torch.bool):
         raise ValueError("n_valid must be a (B,) integer tensor on x's "
                          "device")
+    count_call(x, n_valid)
     if x.device.type == "cuda":
         return _seq_cumsum_cuda(x, n_valid)
     if x.device.type != "cpu":

@@ -48,10 +48,13 @@ SPANS = PHASES | {
 DISPATCH_CHILDREN = {"solve.ranges", "solve.gather", "solve.scan",
                      "solve.fetch", "solve.apply"}
 # the counts a run makes (solve.overflow_regathers and solve.ball_regrows
-# only when a halo goes to another round; ranges.kernel only on the card)
+# only when a halo goes to another round; ranges.kernel only on the card;
+# K2.calls at general masses; solve.giant_* only at giant capacities)
 COUNTS = {"solve.rounds", "solve.dispatches", "solve.halo_gathers",
-          "fused.dispatches", "fused.halo_gathers", "sort.slots",
-          "sort.keys", "ranges.calls"}
+          "fused.dispatches", "fused.halo_gathers", "fused.member_rows",
+          "sort.slots", "sort.keys", "ranges.calls", "K2.calls"}
+# the device counts a run makes with them on (K3.bytes above PIECE_K_MIN)
+DEVICE_COUNTS = {"K1.bytes", "K2.chain_adds", "K2.bytes"}
 
 
 def _box(uniform):
@@ -171,9 +174,8 @@ def test_run_so_spans(recorded):
 def test_run_so_counts(recorded):
     _, spans, added, G = recorded
     counts = {k[0]: v for k, v in added["counts"].items()}
-    assert COUNTS | {"K1.bytes"} <= set(counts) <= COUNTS | {
-        "solve.overflow_regathers", "solve.ball_regrows", "K1.bytes",
-        "K3.bytes"}
+    assert COUNTS | DEVICE_COUNTS <= set(counts) <= COUNTS | DEVICE_COUNTS | {
+        "solve.overflow_regathers", "solve.ball_regrows", "K3.bytes"}
     assert counts["solve.halo_gathers"] >= G
     assert counts["solve.rounds"] >= 1
     assert 0 < counts["sort.keys"] < counts["sort.slots"]
