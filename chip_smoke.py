@@ -42,14 +42,20 @@ script exits nonzero:
      ms, the plain version's ms and its bytes bound (ranges_bytes).
      Equality is exact (tolerance 0). K1's and K3's bytes bounds
      count each payload row once however many of the batch's balls hold
-     it (gather_reads).
+     it (gather_reads). The fused pass's member sums (ops/member_sums,
+     csrc/member_sums.cu) against member_sums_plain on CPU copies, bit for
+     bit, at every launch of run_so on the standard box and on the giant
+     box (normal velocities; one launch a fused dispatch) and on a
+     box512-like stack of 65,536 short lists; ms, device ms and bound
+     (sums_bound: bytes, or the chain of f64 adds at DADD_CYCLES) at that
+     stack and at the giant run's largest launch.
   4. the main path, run_so on "cuda", on bench.py's standard box (2^21
      particles, 16,384 halos, seed 12345, Delta 178): uniform masses, then
      masses from uniform(0.5, 1.5)/N with three species (puts K2 on the
      path); one cold and WARM_RUNS warm runs of each, with the median and
      range of the warm phase seconds. The launch counters of K1, its
-     sorted form, K2 and the cell enumeration, zeroed just before, must
-     grow.
+     sorted form, K2, the cell enumeration and the member sums, zeroed
+     just before, must grow.
   5. GPU against CPU: the same pipeline with device="cpu" on a 2^18 /
      2,048-halo box of each kind must give identical bits (codes, Mvir,
      Rvir, j, d2cut, membership, conflict counters, derived quantities);
@@ -81,8 +87,8 @@ script exits nonzero:
  11. giant: scripts/compare_reference_giant.py's configuration (seed
      515151: one r^-2 clump of 1.6e6 particles on 3.4e6 uniform ones, 4
      giant centers on the clump and 60 small ones), run_so on "cuda" with
-     general, then uniform masses. K1 and K3 must run in both, K2 in the
-     general one; K3's launches per (B, K) are logged, and the general
+     general, then uniform masses. K1, K3 and the member sums must run in
+     both, K2 in the general one; K3's launches per (B, K) are logged, and the general
      run must dispatch K3 at 2^21 slots or more; the 4 giant halos' code,
      Mvir and Rvir must match tests/reference_oracle.py (rel 2e-5). The
      general run is repeated
@@ -173,8 +179,8 @@ over those phases; bounds from this run's inputs at the card's 3.35 TB/s
 and 67 TFLOP/s f32 and, for K2, its longest chain of dependent adds; every
 entry has its graph-replayed "device_ms"; K1's adds the sorted form's
 "sorted_ms", "sorted_device_ms", "sorted_bound_ms", "unfused_ms" and
-"sorted_launches", K2's and the cell enumeration's their giant-row
-figures under "giant_rows"); the
+"sorted_launches", K2's, the cell enumeration's and the member sums'
+their giant-row figures under "giant_rows"); the
 last line is
 {"ok": true, "device": {...}}.
 The card's name and power limit are printed by phase 1.
@@ -200,8 +206,9 @@ GIANT_SEED = 515151
 MESH_SHAPES = ((1, 4), (2, 2))   # --mesh phase: meshes of cuda:0
 MESH_WARM_RUNS = 2  # timed runs of each mesh after its cold run
 # launches summed over the paths; K1 counts both of its forms, K1s the
-# sorted form's share, "ranges" the cell enumeration's
-LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0, "ranges": 0}
+# sorted form's share, "ranges" the cell enumeration's, "sums" the fused
+# pass's member-sum kernel's
+LAUNCHES = {"K1": 0, "K1s": 0, "K2": 0, "K3": 0, "ranges": 0, "sums": 0}
 K2_SHAPES = {}             # K2 launches per (B, K), summed over the paths
 # run_record, ParticleSet and centers of the runs that the "so_tpu at
 # scale" phase holds to tests/torch_refs, by box name
@@ -221,6 +228,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 FADD = {"cycles": 4.0, "sm_hz": None}   # one dependent f32 add; phase_env
                                         # reads the SM clock
+# one dependent f64 add (__dadd_rn) on the H100, member_sums_study.py's probe
+DADD_CYCLES = 8.09
+# the member-sum kernel's longest chain of dependent adds (member_sums_study.py)
+SUMS_CHAIN_ADDS = 16 + 3 + 7 + 5 + 20 + 1
 
 
 def bound(nbytes, ops, chain=0):
@@ -930,6 +941,150 @@ def phase_k3(giant):
     return rows[(8, 1 << 21, 1)]    # a general-mass giant solve dispatch
 
 
+def sums_bound(B, rows, uniform):
+    """(bound_ms, bound_by) of one member-sum launch: the bytes it must move
+    (each member row's int32 idx and its payload reads, 16 B or 12 B at a
+    uniform mass; 24 B out a list) at the card's bandwidth, or its longest
+    chain of dependent f64 adds at DADD_CYCLES each."""
+    terms = {"bytes": (rows * (4 + (12 if uniform else 16)) + 24 * B)
+             / HBM_BYTES_PER_S,
+             "chain": SUMS_CHAIN_ADDS * DADD_CYCLES / FADD["sm_hz"]}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def sums_case(tag, soa8t, idx, counts, um):
+    """One member-sum launch timed: ms by CUDA events, device ms by graph
+    replay, and its bound. Returns the record of the [sums] line it
+    logs."""
+    from so_tpu_torch.ops.member_sums import member_sums
+
+    B, W = idx.shape
+    rows = int(counts.sum())
+    bms, by = sums_bound(B, rows, um is not None)
+    rec = dict(shape=f"B={B} W={W} rows={rows} "
+               f"{'uniform' if um is not None else 'general'} mass",
+               library_ms=None, rows=rows,
+               ms=cuda_ms(lambda: member_sums(soa8t, idx, counts, um), 10),
+               device_ms=graph_ms(lambda: member_sums(soa8t, idx, counts,
+                                                      um), 10),
+               bound_ms=bms, bound_by=by)
+    log(f"[sums] {tag} {rec['shape']}: {rec['ms']:.4f} ms (events) "
+        f"{rec['device_ms']:.4f} ms (graph), bound {bms:.4f} ms ({by}) = "
+        f"{bms / rec['device_ms']:.3f} of its device time")
+    return rec
+
+
+def phase_member_sums(box, giant):
+    """The fused pass's member sums (ops/member_sums.member_sums, the kernel
+    of csrc/member_sums.cu) held bit for bit to member_sums_plain on CPU
+    copies of the very inputs the main path gives it: every call of two
+    run_so on "cuda", taken at engine/fused's call site, on the standard
+    box (16,384 halos, uniform masses: many short lists) and on the giant
+    box (general masses: the giant halos' long lists), both with
+    normal(0, 1) velocities. In each run the kernel must launch once a
+    fused dispatch. Then a box512-like stack on the standard box's grid
+    (normal velocities, uniform mass): 65,536 lists of 20-400 grid rows
+    drawn at random, W = 512, member_sums_study.py's box512 shape (the
+    standard box's cells are too coarse for K1 to gather 65,536 such balls
+    at that W), against member_sums_plain too. Timed (sums_case): the
+    box512-like stack, and the giant run's launch with the most rows under
+    "giant_rows"."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from so_tpu_torch import profiling
+    from so_tpu_torch.engine import fused
+    from so_tpu_torch.ops import member_sums as ms
+    from so_tpu_torch.ops.grid import build_grid
+
+    pay_cpu = {}
+
+    def check(tag, soa8t, idx, counts, um, got):
+        key = soa8t.data_ptr()
+        if key not in pay_cpu:
+            pay_cpu.clear()
+            pay_cpu[key] = soa8t.cpu()
+        idx_h, counts_h = idx.cpu(), counts.cpu()
+        slot = torch.arange(idx_h.shape[1])[None, :]
+        if (idx_h[slot < counts_h[:, None]] < 0).any():
+            raise AssertionError(f"sums {tag}: a pad row inside a list")
+        want = ms.member_sums_plain(pay_cpu[key], idx_h, counts_h)
+        if got.cpu().numpy().tobytes() != want.numpy().tobytes():
+            raise AssertionError(f"sums {tag}: kernel and member_sums_plain "
+                                 f"differ at (B, W) {tuple(idx.shape)}")
+        return int(counts_h.sum())
+
+    rng = np.random.default_rng(SEED + 23)
+    pos, mass_u, _, _, _ = box
+    runs = [("standard", particles_and_catalog(box, (), SEED)),
+            ("giant", giant_inputs(giant, giant["masses"][0][1]))]
+    real = fused.member_sums
+    giant_top = None
+    for tag, (ps, catalog) in runs:
+        vel = rng.normal(size=(ps.n, 3)).astype(np.float32)
+        ps = dataclasses.replace(ps, vel=vel)
+        calls = []
+
+        def record(soa8t, idx, counts, um=None):
+            nonlocal giant_top
+            got = real(soa8t, idx, counts, um)
+            torch.cuda.synchronize()
+            calls.append((tuple(idx.shape), check(tag, soa8t, idx, counts,
+                                                  um, got)))
+            if tag == "giant" and calls[-1][1] == max(c[1] for c in calls):
+                giant_top = (soa8t, idx.clone(), counts.clone(), um)
+            return got
+
+        pay_cpu.clear()
+        zero_counts()
+        d0 = profiling.counts[("fused.dispatches",)]
+        fused.member_sums = record
+        try:
+            out, e2e = run(ps, catalog, (), "cuda")
+        finally:
+            fused.member_sums = real
+        dispatches = profiling.counts[("fused.dispatches",)] - d0
+        counts = read_counts()
+        if not counts["sums"] == len(calls) == dispatches > 0:
+            raise AssertionError(f"sums {tag}: {counts['sums']} launches, "
+                                 f"{len(calls)} calls, {dispatches} fused "
+                                 "dispatches")
+        LAUNCHES["sums"] += counts["sums"]
+        rows = sum(c[1] for c in calls)
+        log(f"[sums] run_so {tag}: {len(calls)} launches = fused dispatches,"
+            f" each equal to member_sums_plain bit for bit; {rows:,} member "
+            f"rows, the most in one launch {max(c[1] for c in calls):,}; "
+            f"(B, W) {sorted(set(c[0] for c in calls))}; e2e {e2e:.3f} s")
+        del out, calls
+
+    dev = torch.device("cuda")
+    vel = rng.normal(size=(pos.shape[0], 3)).astype(np.float32)
+    grid = build_grid(pos, mass_u, vel=vel, device=dev)
+    B, W = 65536, 512
+    counts = torch.as_tensor(rng.integers(20, 401, B), device=dev)
+    idx = torch.as_tensor(rng.integers(0, grid.n, (B, W), dtype=np.int32),
+                          device=dev)
+    idx[torch.arange(W, device=dev)[None, :] >= counts[:, None]] = -1
+    um = grid.uniform_mass
+    pay_cpu.clear()
+    got = ms.member_sums(grid.soa8t, idx, counts, um)
+    torch.cuda.synchronize()
+    rows = check("box512-like", grid.soa8t, idx, counts, um, got)
+    log(f"[sums] box512-like: {B} lists of 20-400 grid rows at random, W "
+        f"{W}, {rows:,} rows: equal to member_sums_plain bit for bit")
+    rec = sums_case("box512-like", grid.soa8t, idx, counts, um)
+    del idx, grid, got
+    pay_cpu.clear()
+    torch.cuda.empty_cache()
+    rec["giant_rows"] = sums_case("giant run's largest launch", *giant_top)
+    del giant_top
+    torch.cuda.empty_cache()
+    return rec
+
+
 def particles_and_catalog(box, species, seed):
     """(ParticleSet, catalog factory) for a make_box box: uniform masses,
     or masses from uniform(0.5, 1.5)/N split over gas/dark/star."""
@@ -973,21 +1128,23 @@ def run(ps, catalog, species, device, grid=None, **kw):
 
 
 def zero_counts():
-    from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
+    from so_tpu_torch.ops import (member_sums, piece_gather, ranges, seqsum,
+                                  slab_gather)
 
     slab_gather.launches = seqsum.launches = piece_gather.launches = 0
-    ranges.launches = 0
+    ranges.launches = member_sums.launches = 0
     slab_gather.sorted_launches = 0
     seqsum.shape_launches.clear()
     piece_gather.shape_launches.clear()
 
 
 def read_counts():
-    from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
+    from so_tpu_torch.ops import (member_sums, piece_gather, ranges, seqsum,
+                                  slab_gather)
 
     return dict(K1=slab_gather.launches, K1s=slab_gather.sorted_launches,
                 K2=seqsum.launches, K3=piece_gather.launches,
-                ranges=ranges.launches)
+                ranges=ranges.launches, sums=member_sums.launches)
 
 
 def gather_need(need):
@@ -1088,7 +1245,8 @@ def phase_main_path(box):
     counts = read_counts()
     log(f"[main] launches in the main-path runs: {counts}")
     read_k2_shapes("main")
-    if min(counts["K1"], counts["K1s"], counts["K2"], counts["ranges"]) <= 0:
+    if min(counts["K1"], counts["K1s"], counts["K2"], counts["ranges"],
+           counts["sums"]) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     return counts
 
@@ -1509,8 +1667,8 @@ def giant_inputs(giant, mass):
 
 def phase_giant(giant):
     """run_so on the giant box on "cuda", general then uniform masses, each
-    with every launch counter zeroed first: K1 (its sorted form too) and K3
-    must run in both, K2 in the general one; the 4 giant halos against the brute-force oracle
+    with every launch counter zeroed first: K1 (its sorted form too), K3
+    and the member sums must run in both, K2 in the general one; the 4 giant halos against the brute-force oracle
     (tests/reference_oracle.py)."""
     import numpy as np
     import torch
@@ -1523,7 +1681,8 @@ def phase_giant(giant):
     for tag, mass in giant["masses"]:
         ps, catalog = giant_inputs(giant, mass)
         torch.cuda.reset_peak_memory_stats()
-        need = ("K1", "K1s", "K3") + (("K2",) if tag == "general" else ())
+        need = (("K1", "K1s", "K3", "sums")
+                + (("K2",) if tag == "general" else ()))
         out, e2e = counted(f"giant {tag}", run, ps, catalog, (), "cuda",
                            need=need)
         codes = check_run(f"giant {tag}", out, catalog().n)
@@ -2466,18 +2625,21 @@ DIST_RANK = """
 import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
 from so_tpu_torch.cli import main
-from so_tpu_torch.ops import piece_gather, ranges, seqsum, slab_gather
+from so_tpu_torch.ops import (member_sums, piece_gather, ranges, seqsum,
+                              slab_gather)
 for port, args in json.loads(sys.argv[2]):
     os.environ["MASTER_PORT"] = str(port)
     slab_gather.launches = slab_gather.sorted_launches = 0
     seqsum.launches = piece_gather.launches = ranges.launches = 0
+    member_sums.launches = 0
     t0 = time.perf_counter()
     if main(args) != 0:
         sys.exit(1)
     print("[rank] " + json.dumps(dict(
         e2e=time.perf_counter() - t0, K1=slab_gather.launches,
         K1s=slab_gather.sorted_launches, K2=seqsum.launches,
-        K3=piece_gather.launches, ranges=ranges.launches)), flush=True)
+        K3=piece_gather.launches, ranges=ranges.launches,
+        sums=member_sums.launches)), flush=True)
 """
 
 
@@ -2494,7 +2656,8 @@ def run_ranks(W, jobs, device="cuda", backend=None):
     variables set by hand (localhost, a free port a job). ``jobs`` are
     (tag, CLI args, kernels that must launch) run in turn in the same
     processes. Every rank must exit 0 and report launches of each job's
-    kernels. Returns per job rank 0's output, its solve seconds and the
+    kernels, and none of the member sums (--distributed sums on the
+    host). Returns per job rank 0's output, its solve seconds and the
     largest e2e seconds (SO CPU Time: the run from the solve through the
     stats, as the CLI reports it)."""
     extra = ["--distributed", "--device", device] + (
@@ -2527,6 +2690,9 @@ def run_ranks(W, jobs, device="cuda", backend=None):
             if any(c[k] <= 0 for k in gather_need(need)):
                 raise AssertionError(f"{tag}: rank {r} never ran a kernel "
                                      f"of the path: {c}")
+            if c["sums"]:
+                raise AssertionError(f"{tag}: rank {r} formed member sums "
+                                     f"on the card under --distributed: {c}")
             for k in LAUNCHES:
                 LAUNCHES[k] += c[k]
         lines = text0[j].splitlines()
@@ -2970,6 +3136,7 @@ def main():
     k2 = timed("K2 ladder", phase_k2)
     giant = timed("giant box", giant_config)
     k3 = timed("K3 kernel", phase_k3, giant)
+    sums = timed("member sums", phase_member_sums, box, giant)
     counts = timed("main path", phase_main_path, box)
     for k, v in counts.items():
         LAUNCHES[k] += v
@@ -3018,6 +3185,10 @@ def main():
              source="so_tpu_torch/csrc/cell_ranges.cu",
              replaces="so_tpu/ops/gather.py:59 (XLA ops, no Pallas kernel)",
              launches=LAUNCHES["ranges"], **cr),
+        dict(name="member_sums", route="cuda",
+             source="so_tpu_torch/csrc/member_sums.cu",
+             replaces="none: host member_mv_sums (so_tpu/engine/members.py)",
+             launches=LAUNCHES["sums"], **sums),
     ]
     log("[K2] launches per (B, K) over the counted paths: "
         + ", ".join(f"({b}, {k}): {n}" for (b, k), n in sorted(

@@ -4,13 +4,17 @@ so_tpu/engine/fused.py).
 The reference re-gathers every solved group twice: kdTagParticles walks
 the j interior particles (kd2.c:823) and kdVcirc re-gathers at 2*Rvir
 (kd2.c:511-514). The interior is a prefix of the distance-sorted 2*Rvir
-ball, so ONE gather at 2*Rvir with (mass, meta, orig) channels yields both:
+ball, so ONE gather at 2*Rvir with (mass, meta, idx) channels yields both:
 the derived quantities (derived_from_sorted) and the member lists (the
-first j sorted rows of each halo, as file-order indices: the "orig"
-channel; those rows are the ball's hits at d2 <= d2cut, the solve's d2
-at row j - 1, and the mask reads both bounds). vcm is computed on the
-host from the member rows (members.vcm_from_members, or an injected
-vcm_fn under --distributed).
+first j sorted rows of each halo, as file-order indices, grid.file_rows
+of the "idx" channel; those rows are the ball's hits at d2 <= d2cut, the
+solve's d2 at row j - 1, and the mask reads both bounds). The f64 m*v
+member sums behind vcm are formed on the card from the same stack of
+sorted rows, read in place (ops/member_sums, csrc/member_sums.cu), and
+vcm from them on the host (members.vcm_from_sums). --distributed (an
+injected vcm_fn) and --mesh (a ShardedGrid, which gathers the "orig"
+channel) keep the host's sums over the fetched member rows
+(members.vcm_from_members).
 
 Derived quantities are computed for every solved group; the pipeline
 zeroes the rows of groups slurped during their own tagging (kd2.c:884)
@@ -24,46 +28,54 @@ import torch
 
 from ..ops.gather import slab_gather
 from ..ops.grid import CellGrid
+from ..ops.member_sums import member_sums
 from ..profiling import counts, span
 from .derived import (DerivedResult, ball_rounds, derived_from_sorted,
                       probe_capacities)
-from .members import vcm_from_members
+from .members import vcm_from_members, vcm_from_sums
 from .solver import _row_ladder
 
 
 def _fused_stage(grid: CellGrid, level: int, K: int, S: int,
                  n_members: int, species: tuple, centers, rvir, d2cut, j,
-                 mvir, grav: float):
+                 mvir, grav: float, card_sums: bool):
     """One capacity tier. Returns (member original indices, concatenated
     halo-major in ascending distance; per-halo member counts; derived
-    dict; overflow), all on the grid's device."""
+    dict; overflow; with ``card_sums``, the (B, 3) f64 m*v member sums of
+    ops/member_sums, else None), all on the grid's device."""
     fball = 2.0 * rvir
     um = grid.uniform_mass
     chans = ((() if um is not None else ("mass",))
-             + (("meta",) if species else ()) + ("orig",))
-    sg = slab_gather(grid, level, centers, fball, fball * fball, K, S,
-                     channels=chans)
-    d2_s = sg.d2
-    mass_s = None if um is not None else sg.channels[0]
+             + (("meta",) if species else ())
+             + (("idx",) if card_sums else ("orig",)))
+    d2_s, ch, n_in, overflow = slab_gather(grid, level, centers, fball,
+                                           fball * fball, K, S,
+                                           channels=chans)
+    mass_s = None if um is not None else ch[0]
     if species:
-        meta = sg.channels[-2].to(torch.int32)
+        meta = ch[-2].to(torch.int32)
         ptype_s, mark_s = meta & 0xF, (meta >> 4) > 0
     else:
         ptype_s = torch.zeros_like(d2_s, dtype=torch.int32)
         mark_s = torch.zeros_like(d2_s, dtype=torch.bool)
-    orig = sg.channels[-1]
-    der = derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, sg.n_in, rvir,
-                              mvir, fball, n_members, species, grav,
-                              uniform_m=um, lad=_row_ladder(grid, K))
+    rows, ch = ch[-1], None
     # interior members: the first j sorted rows, all at d2 <= d2cut (the
     # solve's d2 at row j - 1 lies inside its own Rvir < 2*Rvir) — a PREFIX
     # of each row, so a boolean-mask compaction keeps halo-major,
     # ascending-distance order
     slot = torch.arange(d2_s.shape[1], device=d2_s.device)[None, :]
-    interior = ((slot < j[:, None]) & (d2_s <= d2cut[:, None])
-                & (orig >= 0))
-    counts = interior.sum(dim=1)
-    return orig[interior], counts, der, sg.overflow
+    counts = ((slot < j[:, None]) & (d2_s <= d2cut[:, None])
+              & (rows >= 0)).sum(dim=1)
+    sums = None
+    if card_sums:
+        # the sums read the sorted rows in place; the stack of file rows
+        # is then formed from them, as slab_gather's "orig" is
+        sums = member_sums(grid.soa8t, rows, counts, um)
+        rows = grid.file_rows(rows)
+    der = derived_from_sorted(d2_s, mass_s, ptype_s, mark_s, n_in, rvir,
+                              mvir, fball, n_members, species, grav,
+                              uniform_m=um, lad=_row_ladder(grid, K))
+    return rows[slot < counts[:, None]], counts, der, overflow, sums
 
 
 def members_and_derived(grid: CellGrid, centers: np.ndarray,
@@ -87,12 +99,25 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
     seg_member_filter: the rank's segment rows with their ranks), so no
     rank keeps every member list.
 
+    The f64 m*v member sums behind vcm come from the sorted stack where
+    ``vcm_fn`` is None and ``grid`` is a CellGrid that holds the run's
+    velocities (build_grid given ``vel``): ops/member_sums, the kernel
+    csrc/member_sums.cu on the card and member_mv_sums over the payload on
+    the CPU; ``host_mv`` is then not read. Elsewhere (a grid built without
+    velocities, a parallel.mesh ShardedGrid, whose rows are its shards',
+    or ``vcm_fn``) they come from members.member_mv_sums over ``host_mv``
+    at the fetched rows. Either way the bits are member_mv_sums' over the
+    same rows (engine/members' module docstring).
+
     Spans: fused.probe (the footprints that size the first capacities)
     and a fused.dispatch a stage, with fused.gather (the stage's enqueue),
-    fused.fetch (its three fetches), fused.fill (derived.fill), fused.split
-    (the member lists) and fused.vcm. Counts: fused.dispatches,
-    fused.halo_gathers (halos over all dispatches) and fused.member_rows
-    (the member rows fetched to the host, an overflowed dispatch's too).
+    fused.fetch (its fetches: overflow, counts, member rows and the sums
+    formed on the device), fused.fill (derived.fill), fused.split (the
+    member lists) and fused.vcm (vcm from the sums, or the host's sums
+    and vcm). Counts: fused.dispatches, fused.halo_gathers (halos over all
+    dispatches) and fused.member_rows (the member rows fetched to the
+    host, an overflowed dispatch's too); on the card path
+    ops/member_sums.launches grows by one a dispatch.
     """
     G = centers.shape[0]
     dev = grid.device
@@ -108,6 +133,12 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
     mvir = np.asarray(mvir, np.float32)
     grav = float(np.float32(grav))
 
+    # the sums from the sorted stack (ops/member_sums: the kernel on the
+    # card, member_mv_sums over the payload on the CPU) where the grid's
+    # payload holds the run's velocities and the rows are this process's
+    card_sums = (vcm_fn is None and isinstance(grid, CellGrid)
+                 and grid.holds_vel)
+
     def stage(part, level, K, S):
         def dev_t(a):
             return torch.as_tensor(a[part], device=dev)
@@ -116,13 +147,15 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
             counts[("fused.dispatches",)] += 1
             counts[("fused.halo_gathers",)] += int(part.size)
             with span("fused.gather"):
-                mem, counts_t, der, ovf = _fused_stage(
+                mem, counts_t, der, ovf, sums_t = _fused_stage(
                     grid, level, K, S, n_members, species, dev_t(centers),
-                    dev_t(rvir), dev_t(d2cut), dev_t(j), dev_t(mvir), grav)
+                    dev_t(rvir), dev_t(d2cut), dev_t(j), dev_t(mvir), grav,
+                    card_sums)
             with span("fused.fetch"):
                 ovf = ovf.cpu().numpy()
                 n_mem = counts_t.cpu().numpy()
                 rows64 = mem.cpu().numpy()
+                sums = None if sums_t is None else sums_t.cpu().numpy()
             counts[("fused.member_rows",)] += int(rows64.size)
             ok = ~ovf
             with span("fused.fill"):
@@ -134,9 +167,13 @@ def members_and_derived(grid: CellGrid, centers: np.ndarray,
                                             else member_filter(pieces[i]))
             with span("fused.vcm"):
                 # group mean velocity from the member rows (_VcmParticles)
-                vcm[part[ok]] = (vcm_from_members(host_mv, rows64, n_mem,
-                                                  mvir[part]) if vcm_fn is None
-                                 else vcm_fn(rows64, n_mem, mvir[part]))[ok]
+                if sums is not None:
+                    v = vcm_from_sums(sums, n_mem, mvir[part])
+                elif vcm_fn is None:
+                    v = vcm_from_members(host_mv, rows64, n_mem, mvir[part])
+                else:
+                    v = vcm_fn(rows64, n_mem, mvir[part])
+                vcm[part[ok]] = v[ok]
         return ovf
 
     fball = (np.float32(2.0) * rvir).astype(np.float32)

@@ -9,8 +9,14 @@ fused pass (engine/fused.py); ``extract_members`` is the standalone pass,
 one sorted gather at each halo's d2cut.
 
 vcm's accumulation order is the same everywhere (docs/PARITY.md #8): a
-per-halo sequential float64 sum over the distance-sorted member list
-(np.add.reduceat), so each halo's result depends only on its own list.
+per-halo float64 sum over the distance-sorted member list in
+np.add.reduceat's order, so each halo's result depends only on its own
+list. That order is the first term plus numpy's pairwise sum of the rest
+(blocks of at most 128 terms summed eight ways, halves of longer runs
+summed apart and then added; fewer than 8 terms serial from -0.0), not
+the serial sum that docs/PARITY.md #8 names. The fused pass forms the same
+sums on the card (ops/member_sums, csrc/member_sums.cu); --distributed,
+--mesh and extract_members form them here.
 """
 
 from __future__ import annotations
@@ -24,10 +30,10 @@ from .derived import ball_rounds
 
 
 def member_mv_sums(mvh, rows: np.ndarray, counts: np.ndarray) -> np.ndarray:
-    """(G, 3) f64 per-halo sequential sums of m*v over concatenated member
-    rows. ``mvh`` is the per-particle m*v on the host, a dense (N, 3) f32
-    array or the ``(vel, mass)`` pair; the pair's f32 product m*v is
-    formed on member rows only, bit-identical to the dense form (the
+    """(G, 3) f64 per-halo sums of m*v (np.add.reduceat) over concatenated
+    member rows. ``mvh`` is the per-particle m*v on the host, a dense
+    (N, 3) f32 array or the ``(vel, mass)`` pair; the pair's f32 product
+    m*v is formed on member rows only, bit-identical to the dense form (the
     elementwise multiply commutes with the gather)."""
     counts = np.asarray(counts, np.int64)
     sums = np.zeros((counts.shape[0], 3), np.float64)

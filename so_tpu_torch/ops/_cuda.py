@@ -35,6 +35,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # (soa, np_cols, a0, lo, hi, n_total, nc, centers, period, r2, B, K,
     #  chunk, nchan, c0..c4, out, out_idx, stream)
@@ -54,6 +55,9 @@ _SIGNATURES = {
     #  cnt, q, total, mode, nc, piece_w, desc, desc_n, stream)
     "so_cell_ranges": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P,
                        _P, _I, _L, _I, _P, _P, _P],
+    # (soa, stride, idx, counts, B, W, uniform mass, uniform, cut, NI, out,
+    #  stream)
+    "so_member_sums": [_P, _L, _P, _P, _L, _L, _F, _I, _P, _L, _P, _P],
 }
 
 

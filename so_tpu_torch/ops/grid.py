@@ -70,6 +70,8 @@ class CellGrid:
     uniform_mass: float | None = None  # the single f32 mass value when
     #                           every particle's mass is bit-identical
     phi: torch.Tensor | None = None    # (N,) f32 sorted potentials, or None
+    holds_vel: bool = False   # payload rows 4-6 hold the run's velocities
+    #                           (build_grid was given them; zeros otherwise)
 
     @property
     def n(self) -> int:
@@ -242,7 +244,9 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
     then file row ``first_row + i`` and its species is formed on the
     device from the sorted order (species_of_rows), padding rows 0; with
     neither, every species is 0. ``uniform_mass`` is tested on the device
-    (uniform_mass_on_device). Spans: grid.upload (the host arrays to the
+    (uniform_mass_on_device). ``holds_vel`` marks a grid given ``vel``:
+    its payload then holds the run's velocities (engine/fused forms the
+    m*v member sums from it). Spans: grid.upload (the host arrays to the
     device and the uniform-mass test), grid.sort (Morton codes, the stable
     argsort, the level starts), grid.ptype (the species in sorted order)
     and grid.payload (the payload and phi in sorted order).
@@ -257,6 +261,7 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
         um = uniform_mass_on_device(mass)
         pos = torch.as_tensor(np.asarray(pos, np.float32), device=device)
         n = pos.shape[0]
+        holds_vel = vel is not None
         vel = (torch.zeros((n, 3), **f32) if vel is None else
                torch.as_tensor(np.asarray(vel, np.float32), device=device))
         if ptype is not None:
@@ -302,7 +307,7 @@ def build_grid(pos, mass, vel=None, phi=None, ptype=None, mark=None,
                  torch.as_tensor(np.asarray(phi, np.float32),
                                  device=device)[perm])
     return CellGrid(m, lo, period, soa8t, perm, starts, chunk=chunk,
-                    uniform_mass=um, phi=phi_s)
+                    uniform_mass=um, phi=phi_s, holds_vel=holds_vel)
 
 
 def grid_from_arrays(m: int, lo, period, soa8t, orig_idx, starts,
